@@ -19,9 +19,11 @@ Phases:
    bail/rejoin cells; 400-op epoch-reclamation cells;
 3. main path: DurableMSQ, OptUnlinkedQ and OptLinkedQ under optane-clwb
    at 1,000,000 instances x 96 ops, chunk 48, on the kernel, with
-   ``check_instances`` 8/8, kernel launches counted, and per queue the
-   kernel's and the plain version's time per chunk, the byte bound and
-   peak device memory.
+   ``check_instances`` 8/8, kernel launches counted, the kernel stepped
+   side by side with the plain version at that size, and per queue the
+   kernel's and the plain version's time per chunk, the byte bound, peak
+   device memory and (from a second, profiled run) host seconds per
+   runner phase.
 
 The line before the last holds one JSON object with each kernel's
 numbers; the last line is the device summary.
@@ -171,20 +173,31 @@ class PhaseTimer:
             time.perf_counter() - t0
 
 
-def changed_sector_bytes(before: dict, after: dict) -> int:
-    """Bytes of the 32-byte sectors of the 2-D state that a chunk changed,
-    each read and written once."""
+def _sectors(byte_mask) -> int:
+    """32-byte sectors of a flat byte mask that hold a set byte."""
     import torch
-    sectors = 0
-    for key, a in after.items():
-        if a.dim() != 2 or key == "counts":
-            continue
-        x = a.view(torch.uint8).reshape(-1)
-        y = before[key].view(torch.uint8).reshape(-1)
-        pad = (-x.numel()) % 32
-        d = torch.nn.functional.pad((x != y).to(torch.uint8), (0, pad))
-        sectors += int(d.view(-1, 32).any(dim=1).sum())
-    return sectors * 32 * 2
+    pad = (-byte_mask.numel()) % 32
+    m = torch.nn.functional.pad(byte_mask.to(torch.uint8), (0, pad))
+    return int(m.view(-1, 32).any(dim=1).sum())
+
+
+def reached_sectors(before: dict, after: dict, reach: dict):
+    """-> (sectors the chunk reached, sectors it changed) over the line
+    planes, rings, stacks and limbo.  ``reach`` is the plain version's
+    record of every position the chunk read or wrote; a changed byte
+    outside it raises."""
+    import torch
+    reached = changed = 0
+    for key, r in reach.items():
+        a, b = after[key], before[key]
+        mask = r.unsqueeze(-1).expand(*r.shape, a.element_size()).reshape(-1)
+        diff = a.view(torch.uint8).reshape(-1) != \
+            b.view(torch.uint8).reshape(-1)
+        if bool((diff & ~mask).any()):
+            raise AssertionError(f"{key}: a changed byte was not reached")
+        reached += _sectors(mask)
+        changed += _sectors(diff)
+    return reached, changed
 
 
 def time_chunk(step, st, snapshot, kinds, progs, err, reps):
@@ -214,26 +227,25 @@ def phase_main(device):
     import torch
     from repro_torch.fleet import (FleetConfig, build_fleet,
                                    check_instances, run_fleet)
-    from repro_torch.fleet.torchexec import _SCALAR_FIELDS, TorchBackend
+    from repro_torch.fleet.torchexec import (_ARRAY_FIELDS, _SCALAR_FIELDS,
+                                             TorchBackend)
     from repro_torch.kernels.fleet_step import fleet_step, fleet_step_plain
 
     chunks = -(-MAIN_OPS // CHUNK)
+    cfgs = {q: FleetConfig(queue=q, model="optane-clwb",
+                           instances=MAIN_INSTANCES, ops=MAIN_OPS,
+                           chunk=CHUNK, backend="cuda", device=device, seed=0)
+            for q in MAIN_QUEUES}
+    fleets = {q: build_fleet(cfgs[q]) for q in MAIN_QUEUES}   # set-up
     results = {}
-    fleet_step.launches = 0             # counts of the main path's run
+    fleet_step.launches = 0             # the main path's run starts here
     for q in MAIN_QUEUES:
         before = fleet_step.launches
         torch.cuda.reset_peak_memory_stats()
-        cfg = FleetConfig(queue=q, model="optane-clwb",
-                          instances=MAIN_INSTANCES, ops=MAIN_OPS, chunk=CHUNK,
-                          backend="cuda", device=device, seed=0)
-        fleet = build_fleet(cfg)        # set-up: template and plans
-        phases = PhaseTimer()
-        res = run_fleet(cfg, fleet=fleet, profile=phases)
-        peak = torch.cuda.max_memory_allocated()
-        launches = fleet_step.launches - before
-        results[q] = dict(res=res, launches=launches, peak=peak,
-                          phases=phases.seconds)
-    total_launches = fleet_step.launches
+        res = run_fleet(cfgs[q], fleet=fleets[q])
+        results[q] = dict(res=res, launches=fleet_step.launches - before,
+                          peak=torch.cuda.max_memory_allocated())
+    total_launches = fleet_step.launches    # ... and ends here
 
     worst = 0
     summary = {}
@@ -250,6 +262,12 @@ def phase_main(device):
         if ok != 8:
             raise AssertionError(f"{q}: check_instances {ok}/8")
         agg = res.aggregate()
+        phases = PhaseTimer()           # a second run, for the breakdown
+        profiled = run_fleet(cfgs[q], fleet=fleets[q], profile=phases)
+        if not np.array_equal(profiled.counts, res.counts):
+            raise AssertionError(f"{q}: the profiled run's counts differ")
+        prof_run_s = profiled.run_s
+        del profiled
 
         kinds = torch.as_tensor(np.ascontiguousarray(res.kinds[:CHUNK]))
         kinds = kinds.to(device)
@@ -258,37 +276,47 @@ def phase_main(device):
         snapshot = {k: v.clone() for k, v in kb.st.items()}
         ms = time_chunk(fleet_step, kb.st, snapshot, kinds, kb.progs,
                         kb.err, KERNEL_REPS)
-        per_instance = 2 * sum(kb.st[k].element_size()
-                               for k in _SCALAR_FIELDS) + 2 * 12 * 4 + CHUNK
-        bound_bytes = MAIN_INSTANCES * per_instance + \
-            changed_sector_bytes(snapshot, kb.st)
-        bound_ms = bound_bytes / HBM_BYTES_PER_S * 1e3
         pst = {k: v.clone() for k, v in snapshot.items()}
         plain_ms = time_chunk(fleet_step_plain, pst, snapshot, kinds,
                               kb.progs, kb.err, PLAIN_REPS)
-        del pst, snapshot, kb
+        # the chunk's reach, recorded by the plain version from the same
+        # state; its result is also held to the kernel's
+        rst = {k: v.clone() for k, v in snapshot.items()}
+        reach = {k: torch.zeros_like(rst[k], dtype=torch.bool)
+                 for k in _ARRAY_FIELDS}
+        fleet_step_plain(rst, kinds, 0, kb.progs, kb.err, reach=reach)
+        worst = max(worst, compare_states(kb.st, rst, f"main {q} chunk 0"))
+        reached, changed = reached_sectors(snapshot, kb.st, reach)
+        per_instance = 2 * sum(kb.st[k].element_size()
+                               for k in _SCALAR_FIELDS) + \
+            2 * kb.st["counts"][0].nbytes + 2 * kb.st["slots"][0].nbytes + \
+            CHUNK
+        bound_bytes = MAIN_INSTANCES * per_instance + 32 * (reached + changed)
+        bound_ms = bound_bytes / HBM_BYTES_PER_S * 1e3
+        del pst, rst, reach, snapshot, kb
         torch.cuda.empty_cache()
-        if q == "OptLinkedQ":
-            _, err = lockstep(res.template, res.kinds, CHUNK, device,
-                              f"main {q}")
-            worst = max(worst, err)
-            torch.cuda.empty_cache()
-            log(f"phase 3 {q}: plain backend on the card gives the identical "
-                f"state after every chunk at {MAIN_INSTANCES} instances")
+        _, err = lockstep(res.template, res.kinds, CHUNK, device, f"main {q}")
+        worst = max(worst, err)
+        torch.cuda.empty_cache()
+        log(f"phase 3 {q}: plain backend on the card gives the identical "
+            f"state after every chunk at {MAIN_INSTANCES} instances")
         state_gb = results[q]["peak"] / 1e9
         log(f"phase 3 fleet/optane-clwb/off/{q}: "
             f"{MAIN_INSTANCES} instances x {MAIN_OPS} ops, "
-            f"mops={res.ops_per_sec / 1e6:.3f} run_s={res.run_s:.3f} "
+            f"mops={res.ops_per_sec / 1e6:.3f} run_s={res.run_s:.4f} "
             f"launches={launches} kernel_ms_per_chunk={ms:.3f} "
-            f"plain_ms_per_chunk={plain_ms:.1f} bound_ms={bound_ms:.3f} "
-            f"(bytes={bound_bytes}) roofline_share={bound_ms / ms:.3f} "
+            f"plain_ms_per_chunk={plain_ms:.1f} bound_ms={bound_ms:.4f} "
+            f"(bytes={bound_bytes}: {per_instance} B x instances, "
+            f"{reached} sectors reached, {changed} changed) "
+            f"roofline_share={bound_ms / ms:.4f} "
             f"max_memory_allocated_gb={state_gb:.2f} "
             f"fences_per_op={agg.fences / res.total_ops:.3f} "
             f"post_flush_per_op={agg.post_flush_accesses / res.total_ops:.3f}"
             f" check_instances=8/8")
-        log(f"phase 3 {q} run_s by phase (host s, synchronised): " +
-            " ".join(f"{k}={v:.4f}" for k, v in
-                     results[q]["phases"].items()))
+        log(f"phase 3 {q} profiled run: run_s={prof_run_s:.4f}, by phase "
+            f"(host s, synchronised): " +
+            " ".join(f"{k}={v:.4f}" for k, v in phases.seconds.items()) +
+            f" outside={prof_run_s - sum(phases.seconds.values()):.4f}")
         log(f"fleet/optane-clwb/off/{q}/cuda_wall_us_per_op,"
             f"{res.run_s * 1e6 / res.total_ops:.4f}")
         summary[q] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,

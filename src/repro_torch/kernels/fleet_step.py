@@ -171,6 +171,14 @@ def _put(a: torch.Tensor, idx: torch.Tensor, m: torch.Tensor, val) -> None:
     a.scatter_(1, idx[:, None], new[:, None])
 
 
+def _touch(reach, key: str, idx: torch.Tensor, m: torch.Tensor) -> None:
+    """Mark ``st[key][i, idx[i]]`` reached where ``m[i]`` (``reach`` is
+    None unless the caller records what a chunk reads and writes)."""
+    if reach is not None:
+        ii = m.nonzero(as_tuple=True)[0]
+        reach[key][ii, idx[ii].long()] = True
+
+
 def _index(err, m, idx, width: int, bit: int) -> torch.Tensor:
     """Flag masked rows whose index lies outside [0, width); return the
     index clamped into range (the value at a flagged row is never used:
@@ -179,7 +187,7 @@ def _index(err, m, idx, width: int, bit: int) -> torch.Tensor:
     return idx.clamp(0, width - 1)
 
 
-def _advance_plain(dims, st, adv, err) -> None:
+def _advance_plain(dims, st, adv, err, reach) -> None:
     """Epoch advance for the rows in ``adv``: limbo entries two epochs
     stale move to the free stacks in limbo order, and the limbo ring is
     permuted exactly as ``argsort(where(keep, 0, 1), stable=True)``."""
@@ -195,6 +203,14 @@ def _advance_plain(dims, st, adv, err) -> None:
     # the kernel compacts by rotation, which needs the freed entries to be
     # a prefix (limbo epochs never decrease along the ring)
     _flag(err, adv & (fr != (j < nfr[:, None])).any(dim=1), ERR_LIMBO)
+    if reach is not None:
+        # the epochs are scanned; freed entries are read; a partial free
+        # rotates the whole live ring
+        live = inl & adv[:, None]
+        rot = live & ((nfr > 0) & (nfr < nl))[:, None]
+        reach["limbo_e"] |= live
+        for key in ("limbo_a", "limbo_k"):
+            reach[key] |= fr | rot
     is_p = st["limbo_k"] == 0
     for sel, key, nkey, slen in ((fr & is_p, "free_p", "nfree", dims.fcap),
                                  (fr & ~is_p, "vfree", "nvfree",
@@ -205,6 +221,8 @@ def _advance_plain(dims, st, adv, err) -> None:
         _flag(err, bad, ERR_FREE)
         ii, jj = (sel & ~bad).nonzero(as_tuple=True)
         st[key][ii, dest[ii, jj].long()] = st["limbo_a"][ii, jj]
+        if reach is not None:
+            reach[key][ii, dest[ii, jj].long()] = True
         st[nkey] = st[nkey] + cnt[:, -1]
     keep = inl & ~fr
     order = torch.argsort((~keep).to(torch.int32), dim=1, stable=True)
@@ -213,7 +231,8 @@ def _advance_plain(dims, st, adv, err) -> None:
     st["nlimbo"] = nl - nfr
 
 
-def _apply_plain(spec: ProgSpec, dims, st, sel, oi: int, err) -> None:
+def _apply_plain(spec: ProgSpec, dims, st, sel, oi: int, err,
+                 reach) -> None:
     """One lowered op for every instance where ``active & sel``; the
     batched form of ``_op_prologue`` + ``_apply_opcode_one``."""
     cap = dims.cap
@@ -227,6 +246,8 @@ def _apply_plain(spec: ProgSpec, dims, st, sel, oi: int, err) -> None:
     has = length > 0
     tail_p = torch.where(has, _col(st["ring_p"], tpos), st["dummy_p"])
     tail_v = torch.where(has, _col(st["ring_v"], tpos), st["dummy_v"])
+    _touch(reach, "ring_p", tpos, m0 & has)
+    _touch(reach, "ring_v", tpos, m0 & has)
     # ---- bail detection -------------------------------------------------
     bail = torch.zeros_like(m0)
     if spec.code == KIND_DEQ:
@@ -238,6 +259,7 @@ def _apply_plain(spec: ProgSpec, dims, st, sel, oi: int, err) -> None:
         ln = _index(err, m0, tail_p.div(LINE_WORDS, rounding_mode="floor"),
                     pers.shape[1], ERR_PERSISTED)
         bail |= _col(pers, ln.long()) == 0
+        _touch(reach, "persisted", ln, m0)
     if spec.allocs_p:
         bail |= (st["nfree"] == 0) & (st["cursor"] >= dims.area_cap)
     if spec.allocs_v:
@@ -252,7 +274,7 @@ def _apply_plain(spec: ProgSpec, dims, st, sel, oi: int, err) -> None:
         adv = m & (ctr >= EPOCH_ADV_OPS)
         st["opsctr"] = torch.where(m, torch.where(adv, 0, ctr), st["opsctr"])
         if bool(adv.any()):
-            _advance_plain(dims, st, adv, err)
+            _advance_plain(dims, st, adv, err, reach)
     # ---- env + allocations ----------------------------------------------
     env = {}
     if spec.code == KIND_ENQ:
@@ -263,6 +285,8 @@ def _apply_plain(spec: ProgSpec, dims, st, sel, oi: int, err) -> None:
         env[E_HEAD_P], env[E_HEAD_V] = st["dummy_p"], st["dummy_v"]
         env[E_NEXT_P] = _col(st["ring_p"], hpos)
         env[E_NEXT_V] = _col(st["ring_v"], hpos)
+        _touch(reach, "ring_p", hpos, m)
+        _touch(reach, "ring_v", hpos, m)
     if spec.prev_slot >= 0:
         env[E_PREV] = st["slots"][:, spec.prev_slot].clone()
     for on, stack, nkey, ckey, base, width in (
@@ -275,6 +299,7 @@ def _apply_plain(spec: ProgSpec, dims, st, sel, oi: int, err) -> None:
         nf, cur = st[nkey], st[ckey]
         use = nf > 0
         top = _index(err, m & use, nf - 1, st[stack].shape[1], ERR_FREE)
+        _touch(reach, stack, top, m & use)
         env[E_NEW_P if stack == "free_p" else E_NEW_V] = torch.where(
             use, _col(st[stack], top.long()), base + cur * width)
         st[nkey] = torch.where(m & use, nf - 1, nf)
@@ -299,17 +324,21 @@ def _apply_plain(spec: ProgSpec, dims, st, sel, oi: int, err) -> None:
             st["counts"].scatter_add_(1, ev[:, None].long(),
                                       m[:, None].to(torch.int32))
             _put(st["vtouched"], w, m, 1)
+            _touch(reach, "vtouched", w, m)
             return
         if kind in (OPC_PDISCARD, OPC_PADD):
             ln = _index(err, m, a.div(LINE_WORDS, rounding_mode="floor"),
                         pers.shape[1], ERR_PERSISTED).long()
             _put(pers, ln, m, 1 if kind == OPC_PADD else 0)
+            _touch(reach, "persisted", ln, m)
             return
         if kind == OPC_LIMBO:
             pos = _index(err, m, st["nlimbo"], dims.lcap, ERR_LIMBO).long()
             _put(st["limbo_a"], pos, m, a)
             _put(st["limbo_e"], pos, m, epoch)
             _put(st["limbo_k"], pos, m, imm)
+            for key in ("limbo_a", "limbo_e", "limbo_k"):
+                _touch(reach, key, pos, m)
             st["nlimbo"] = torch.where(m, st["nlimbo"] + 1, st["nlimbo"])
             return
         if kind == OPC_SLOT:
@@ -329,6 +358,14 @@ def _apply_plain(spec: ProgSpec, dims, st, sel, oi: int, err) -> None:
                                         EV_COLD_NVM, EV_COLD_DRAM)))
             st["counts"].scatter_add_(1, ev[:, None].long(),
                                       m[:, None].to(torch.int32))
+            # everfl is read only for a line neither cached nor flushed
+            _touch(reach, "everfl", ln,
+                   m & ((ev == EV_COLD_NVM) | (ev == EV_COLD_DRAM)))
+        if kind != OPC_ST_EVERFL:
+            _touch(reach, "cached", ln, m)
+            _touch(reach, "finval", ln, m)
+        if kind in (OPC_ST_INVAL, OPC_ST_EVERFL):
+            _touch(reach, "everfl", ln, m)
         if kind in (OPC_CLASS_P, OPC_RECACHE):
             _put(ca, ln, m, 1)
             _put(fi, ln, m, 0)
@@ -349,6 +386,8 @@ def _apply_plain(spec: ProgSpec, dims, st, sel, oi: int, err) -> None:
         pos = s.remainder(cap).long()
         _put(st["ring_p"], pos, m, env[E_NEW_P] if spec.allocs_p else 0)
         _put(st["ring_v"], pos, m, env[E_NEW_V] if spec.allocs_v else 0)
+        _touch(reach, "ring_p", pos, m)
+        _touch(reach, "ring_v", pos, m)
         st["length"] = torch.where(m, length + 1, length)
     else:
         st["dummy_p"] = torch.where(m, env[E_NEXT_P], st["dummy_p"])
@@ -365,14 +404,19 @@ def _apply_plain(spec: ProgSpec, dims, st, sel, oi: int, err) -> None:
 
 
 def fleet_step_plain(st: dict, kinds: torch.Tensor, start: int,
-                     progs: FleetStepPrograms, err: torch.Tensor) -> None:
+                     progs: FleetStepPrograms, err: torch.Tensor,
+                     reach: dict = None) -> None:
     """Advance ``st`` in place through ``kinds.shape[0]`` plan steps.
-    ``kinds[c, i]`` is instance i's op at global index ``start + c``."""
+    ``kinds[c, i]`` is instance i's op at global index ``start + c``.
+
+    ``reach``, when given, maps each of ``_ARRAY_FIELDS`` to a bool tensor
+    of that field's shape, and the call sets every position the chunk's
+    ops read or write there: the state a byte bound must count."""
     for c in range(kinds.shape[0]):
         k = kinds[c]
         for spec in progs.specs:
             _apply_plain(spec, progs.dims, st, k == spec.code, start + c,
-                         err)
+                         err, reach)
 
 
 # --------------------------------------------------------------------------

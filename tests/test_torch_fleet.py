@@ -12,7 +12,9 @@ there is no tolerance:
   numpy stepper's, and its ``check_instances`` is 8/8 against
   ``run_batched``, for all 8 queues x 3 models;
 * bail/rejoin on unclamped dequeue-heavy plans and the 400-op epoch
-  reclamation cells stay exact.
+  reclamation cells stay exact;
+* the plain stepper's record of the positions a chunk reaches (what the
+  byte bound counts) covers every byte the chunk changes.
 
 The full state after every chunk is held to the JAX opcode stepper and
 the Pallas kernel in ``tests/test_torch_fleet_jax.py``.
@@ -27,9 +29,12 @@ from repro.fleet import FleetConfig as RefConfig  # noqa: E402
 from repro.fleet import build_template as ref_build_template  # noqa: E402
 from repro.fleet import run_fleet as ref_run_fleet  # noqa: E402
 from repro.fleet.lowering import encode_program as ref_encode  # noqa: E402
-from repro_torch.fleet import (FleetConfig, build_template,  # noqa: E402
-                               check_instances, run_fleet)
+from repro_torch.fleet import (FleetConfig, build_fleet,  # noqa: E402
+                               build_template, check_instances, run_fleet)
 from repro_torch.fleet.lowering import encode_program  # noqa: E402
+from repro_torch.fleet.torchexec import _ARRAY_FIELDS, tile_row  # noqa: E402
+from repro_torch.kernels.fleet_step import (FleetStepPrograms,  # noqa: E402
+                                            fleet_step_plain)
 
 MODELS = ["optane-clwb", "eadr", "cxl"]
 
@@ -110,3 +115,45 @@ def test_epoch_reclamation_exact(queue):
     assert res.bails == 0
     assert np.array_equal(res.counts, ref.counts)
     _assert_all_ok(res, sample=4)
+
+
+@pytest.mark.parametrize("queue,ops", [("DurableMSQ", 96),
+                                       ("OptUnlinkedQ", 96),
+                                       ("UnlinkedQ", 200),
+                                       ("OptLinkedQ", 200)])
+def test_reach_record_covers_every_change(queue, ops):
+    """``fleet_step_plain(reach=...)`` marks the positions a chunk reads or
+    writes.  Recording leaves the result as it is, every state entry the
+    chunk changes is marked, and reads add positions beyond the changes.
+    200 ops cross three epoch advances, so limbo entries are freed."""
+    n = 9
+    fleet = build_fleet(FleetConfig(queue=queue, instances=n, ops=ops,
+                                    chunk=ops, backend="torch", device="cpu",
+                                    seed=7))
+    t = fleet.template
+    progs = FleetStepPrograms(t.programs, t.dims)
+    kinds = torch.from_numpy(np.ascontiguousarray(fleet.kinds))
+    before = tile_row(t.row, t.dims, n, "cpu")
+    plain = {k: v.clone() for k, v in before.items()}
+    rec = {k: v.clone() for k, v in before.items()}
+    reach = {k: torch.zeros_like(before[k], dtype=torch.bool)
+             for k in _ARRAY_FIELDS}
+    err = torch.zeros(1, dtype=torch.int32)
+    fleet_step_plain(plain, kinds, 0, progs, err)
+    fleet_step_plain(rec, kinds, 0, progs, err, reach=reach)
+    assert int(err) == 0
+    for key in before:
+        assert torch.equal(plain[key], rec[key]), key
+    reached = changed = 0
+    for key in _ARRAY_FIELDS:
+        diff = rec[key] != before[key]
+        assert not (diff & ~reach[key]).any(), f"{key}: change not reached"
+        reached += int(reach[key].sum())
+        changed += int(diff.sum())
+    assert changed > 0 and reached > changed
+    assert reach["ring_p"].any() and reach["cached"].any()
+    if t.dims.uses_ssmem and ops >= 200:
+        assert (rec["epoch"] - before["epoch"] == 3).all()
+        # the free stack starts empty and is filled only by reclamation
+        assert (before["nfree"] == 0).all() and (rec["nfree"] > 0).all()
+        assert reach["limbo_e"].any() and reach["free_p"].any()

@@ -23,7 +23,7 @@ from repro.fleet.state import replicate  # noqa: E402
 from repro_torch.fleet import FleetConfig, build_template  # noqa: E402
 from repro_torch.fleet import fleet_kinds, run_fleet  # noqa: E402
 from repro_torch.fleet.torchexec import (state_to_numpy,  # noqa: E402
-                                         state_to_torch)
+                                         state_to_torch, tile_row)
 from repro_torch.kernels.fleet_step import (FleetStepPrograms,  # noqa: E402
                                             fleet_step)
 
@@ -42,6 +42,24 @@ def _jax_state(template, n):
     for attr, arr in state.slots.items():
         st["slot_" + attr] = arr
     return st
+
+
+@pytest.mark.parametrize("queue", ["MSQ", "DurableMSQ", "OptUnlinkedQ",
+                                   "OptLinkedQ"])
+def test_state_to_torch_takes_both_reference_forms(queue):
+    """The reference's ``FleetState`` (``replicate``'s output) and its
+    field dict carry over to the same state, which is also the port's own
+    template row tiled on the device."""
+    n = 5
+    ref_t = ref_build_template(queue, "optane-clwb", ops=96)
+    from_state = state_to_torch(replicate(ref_t.row, ref_t.dims, n), "cpu")
+    from_dict = state_to_torch(_jax_state(ref_t, n), "cpu")
+    mine = build_template(queue, "optane-clwb", ops=96)
+    tiled = tile_row(mine.row, mine.dims, n, "cpu")
+    assert from_state.keys() == from_dict.keys() == tiled.keys()
+    for key, val in tiled.items():
+        assert torch.equal(from_state[key], val), key
+        assert torch.equal(from_dict[key], val), key
 
 
 @pytest.mark.parametrize("queue,model", STATE_CELLS)
