@@ -4,8 +4,9 @@
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It builds the port's CUDA kernels from ``src/repro_torch/csrc/``, holds
 each against its plain PyTorch version on the card, drives the port's main
-path (the fleet executor, ``repro_torch.fleet.run_fleet``) at full size,
-and checks the result against independent per-instance harnesses.  It
+paths at full size (the fleet executor, ``repro_torch.fleet.run_fleet``;
+yi-6b serving through ``ServeEngine`` and its prefill step), and checks
+their results against independent references.  It
 imports nothing of JAX or of the JAX package.  Every failure raises and
 exits non-zero; a host without CUDA exits 2 and prints no result.
 
@@ -23,7 +24,29 @@ Phases:
    side by side with the plain version at that size, and per queue the
    kernel's and the plain version's time per chunk, the byte bound, peak
    device memory and (from a second, profiled run) host seconds per
-   runner phase.
+   runner phase;
+4. K4, decode attention, vs its plain version: the JAX test shapes in
+   fp32 and bf16, edge lengths 1 and S, a ragged S, yi-6b's decode shape
+   (B=16, S=32768, bf16, random lengths) and both serving cells' shapes
+   (S=2048, B=4 with lengths 1-11 and B=32); then the kernel, the plain
+   version and one PyTorch SDPA call timed at B=128, S=32768 beside the
+   byte bound;
+5. K2, flash attention, vs its plain version: the JAX test shapes,
+   non-causal, ragged S and yi-6b's prefill shape (B=1, S=4096, bf16);
+   then the three timed at that shape beside the FLOP bound;
+6. serving main path: ``ServeEngine`` on yi-6b at full width (bf16, 32
+   layers, random weights from seed 0, max_len 2048) through K4, twice:
+   the JAX serve command's traffic (12 requests, batch 4, 4-token prompts,
+   8 new tokens) checks the answers and the launch count; the chat cell
+   (64 requests, batch 32, prompt lengths log-normal around 1,020 tokens,
+   128 new tokens) fills the cache to 2,048 positions.  For each: decode
+   tokens/s, ms per step, and at the last position ms per ``serve_step``
+   beside its byte bound, device busy time with K4's part (profiler), the
+   host's cost per K4 call, peak device memory;
+7. prefill (``make_prefill_step``, B=1, S=4096, bf16) through K2, with its
+   time; then yi-6b in fp32 from the same seed, kernels against plain
+   versions for the whole model (prefill last-token logits, 16
+   ``serve_step``s) and decode == forward at S=16.
 
 The line before the last holds one JSON object with each kernel's
 numbers; the last line is the device summary.
@@ -37,6 +60,8 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM, NVIDIA data sheet
+BF16_FLOPS = 989e12             # dense bf16 tensor-core peak, same sheet
+FP32_FLOPS = 67e12              # fp32 outside the tensor cores
 DEVICE = "cuda"
 MATRIX_QUEUES = ("MSQ", "DurableMSQ", "IzraelevitzQ", "NVTraverseQ",
                  "UnlinkedQ", "LinkedQ", "OptUnlinkedQ", "OptLinkedQ")
@@ -45,6 +70,67 @@ MAIN_QUEUES = ("DurableMSQ", "OptUnlinkedQ", "OptLinkedQ")
 MATRIX_INSTANCES = 4096
 MAIN_INSTANCES, MAIN_OPS, CHUNK = 1_000_000, 96, 48
 KERNEL_REPS, PLAIN_REPS = 10, 2
+KERNELS = ("fleet_step", "decode_attention", "flash_attention")
+# (rtol, atol) per dtype.  fp32 as tests/test_kernels.py.  bf16: its rtol,
+# but an atol scaled to the outputs: a row over n keys averages to about
+# 1.65/sqrt(n), 0.01-0.03 at thousands of keys, where an atol of 2e-2
+# would pass a kernel that drops a tile.  Both sides compute in fp32 and
+# differ by the final rounding to bf16, one ulp (2^-8 to 2^-7 relative).
+ATTN_TOL = {"float32": (2e-5, 2e-5), "bfloat16": (2e-2, 1e-3)}
+MODEL_TOL = 1e-3    # fp32 model, kernels vs plain: see phase_model_check
+DECODE_CASES = [    # (B, S, H, KV, hd, dtype, lengths or None = random)
+    (2, 1024, 8, 2, 64, "float32", None), (2, 1024, 8, 2, 64, "bfloat16",
+                                           None),
+    (4, 512, 4, 4, 64, "float32", None), (4, 512, 4, 4, 64, "bfloat16",
+                                          None),
+    (1, 2048, 8, 1, 128, "float32", None), (1, 2048, 8, 1, 128,
+                                            "bfloat16", None),
+    (2, 512, 4, 2, 64, "float32", [1, 512]),
+    (2, 512, 4, 2, 64, "float32", [512, 1]),
+    (2, 512, 4, 2, 64, "float32", [137, 255]),
+    (3, 300, 8, 4, 32, "float32", None), (3, 300, 8, 4, 32, "bfloat16",
+                                          None),
+    (2, 700, 24, 8, 128, "bfloat16", None),       # 3 heads a group
+    (2, 300, 96, 8, 128, "float32", None),        # 12 heads a group
+    (3, 129, 16, 1, 16, "float32", None),         # 16 heads, head_dim 16
+    (4, 64, 4, 1, 16, "bfloat16", None),          # reduced yi-6b decode
+    (16, 32768, 32, 4, 128, "bfloat16", None),    # yi-6b decode
+    # the smoke serve's shape: 32 splits of 64 keys, all but one empty
+    (4, 2048, 32, 4, 128, "bfloat16", [1, 4, 8, 11]),
+    (32, 2048, 32, 4, 128, "bfloat16", None),     # the chat serve's shape
+]
+DECODE_TIMED = (128, 32768, 32, 4, 128)           # B, S, H, KV, hd; bf16
+FLASH_CASES = [     # (B, S, H, KV, hd, dtype, causal)
+    (2, 256, 4, 4, 64, "float32", True), (2, 256, 4, 4, 64, "bfloat16",
+                                          True),
+    (2, 512, 8, 2, 64, "float32", True), (2, 512, 8, 2, 64, "bfloat16",
+                                          True),
+    (1, 1024, 8, 1, 128, "float32", True), (1, 1024, 8, 1, 128,
+                                            "bfloat16", True),
+    (3, 384, 6, 2, 32, "float32", True), (3, 384, 6, 2, 32, "bfloat16",
+                                          True),
+    (2, 256, 4, 2, 64, "float32", False), (2, 256, 4, 2, 64, "bfloat16",
+                                           False),
+    (2, 200, 4, 2, 32, "float32", True), (1, 77, 8, 2, 64, "float32",
+                                          False),
+    (1, 1000, 32, 4, 128, "bfloat16", True),
+    (1, 300, 24, 8, 128, "bfloat16", True),       # 3 heads a group
+    (2, 100, 4, 1, 16, "float32", True), (2, 100, 4, 1, 16, "bfloat16",
+                                          True),  # reduced yi-6b
+    (1, 4096, 32, 4, 128, "bfloat16", True),      # yi-6b prefill
+]
+FLASH_TIMED = (1, 4096, 32, 4, 128)               # B, S, H, KV, hd; bf16
+SERVE_ARCH, SERVE_MAX_LEN, SERVE_REQUESTS = "yi-6b", 2048, 12
+SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 4, 4, 8   # the JAX serve driver's
+# The chat serve: prompt lengths log-normal around the median prompt of
+# the Azure LLM inference trace 2023, conversation (github.com/Azure/
+# AzurePublicDataset, as summarised in Splitwise, arXiv:2311.18677: 1,020
+# tokens; output median 129); the spread (sigma 0.7) is chosen.  Prompts
+# are cut to what the 2,048-position cache holds with the answer.  The
+# engine has one max_new a run, so every answer is 128 tokens.
+CHAT_REQUESTS, CHAT_BATCH, CHAT_NEW = 64, 32, 128
+CHAT_PROMPT_MEDIAN, CHAT_PROMPT_SIGMA, CHAT_SEED = 1020, 0.7, 1
+PREFILL_LEN, MODEL_STEPS, DECODE_FWD_LEN = 4096, 16, 16
 
 
 def log(msg):
@@ -238,14 +324,17 @@ def phase_main(device):
             for q in MAIN_QUEUES}
     fleets = {q: build_fleet(cfgs[q]) for q in MAIN_QUEUES}   # set-up
     results = {}
-    fleet_step.launches = 0             # the main path's run starts here
+    reset_counts()                      # the main path's run starts here
     for q in MAIN_QUEUES:
         before = fleet_step.launches
         torch.cuda.reset_peak_memory_stats()
         res = run_fleet(cfgs[q], fleet=fleets[q])
         results[q] = dict(res=res, launches=fleet_step.launches - before,
                           peak=torch.cuda.max_memory_allocated())
-    total_launches = fleet_step.launches    # ... and ends here
+    counts = read_counts()              # ... and ends here
+    total_launches = counts["fleet_step"]
+    if counts["decode_attention"] or counts["flash_attention"]:
+        raise AssertionError(f"fleet main path launched {counts}")
 
     worst = 0
     summary = {}
@@ -324,6 +413,517 @@ def phase_main(device):
     return summary, total_launches, worst
 
 
+# ---------------------------------------------------------------------------
+# phases 4-7: the serving slice (K4, K2, yi-6b serve and prefill)
+# ---------------------------------------------------------------------------
+
+def kernel_fns():
+    """{name: wrapper} of every kernel whose launches are counted."""
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.fleet_step import fleet_step
+    return {"fleet_step": fleet_step, "decode_attention": decode_attention,
+            "flash_attention": flash_attention}
+
+
+def reset_counts():
+    for fn in kernel_fns().values():
+        fn.launches = 0
+
+
+def read_counts() -> dict:
+    return {name: fn.launches for name, fn in kernel_fns().items()}
+
+
+def cuda_ms(fn, reps: int) -> float:
+    """Mean ms of ``fn()`` over ``reps`` calls after one warm-up, CUDA
+    events around the run."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def device_profile(fn, reps: int):
+    """Run ``fn()`` ``reps`` times under torch.profiler -> (device kernel
+    ms per call, {kernel name: ms per call}).  Only events that ran on the
+    card count; the profiler slows the host, not the kernels."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    by_kernel = {e.key: e.self_device_time_total / 1e3 / reps
+                 for e in kernels}
+    return sum(by_kernel.values()), by_kernel
+
+
+def kernel_device_ms(by_kernel: dict, *names: str) -> float:
+    """Device ms of the profiled kernels whose names hold one of ``names``;
+    raises if there is none (the profile then did not see the kernel)."""
+    ms = [v for k, v in by_kernel.items() if any(n in k for n in names)]
+    if not ms:
+        raise AssertionError(f"the device profile shows no {names}")
+    return sum(ms)
+
+
+def _top(by_kernel: dict) -> str:
+    top = sorted(by_kernel.items(), key=lambda kv: kv[1], reverse=True)[:5]
+    return "; ".join(f"{name[:60]} {ms:.3f}" for name, ms in top)
+
+
+def hold(out, ref, rtol: float, atol: float, where: str) -> float:
+    """Raise unless ``out`` is finite and |out - ref| <= atol + rtol |ref|
+    everywhere -> the largest absolute difference."""
+    import torch
+    out, ref = out.float(), ref.float()
+    if out.shape != ref.shape or not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"{where}: shape {tuple(out.shape)} vs "
+                             f"{tuple(ref.shape)}, or not finite")
+    err = (out - ref).abs()
+    bad = err > atol + rtol * ref.abs()
+    if bool(bad.any()):
+        raise AssertionError(f"{where}: {int(bad.sum())} entries outside "
+                             f"rtol={rtol} atol={atol}, max abs err "
+                             f"{float(err.max()):.3e}")
+    return float(err.max())
+
+
+def _randn(gen, shape, dtype, device):
+    import torch
+    return torch.randn(shape, generator=gen, device=device).to(
+        getattr(torch, dtype))
+
+
+def phase_decode(device):
+    import torch
+    from repro_torch.kernels.decode_attention import (decode_attention,
+                                                      decode_attention_plain)
+    gen = torch.Generator(device=device).manual_seed(4)
+    worst = 0.0
+    for B, S, H, KV, hd, dtype, lens in DECODE_CASES:
+        q = _randn(gen, (B, H, hd), dtype, device)
+        k = _randn(gen, (B, S, KV, hd), dtype, device)
+        v = _randn(gen, (B, S, KV, hd), dtype, device)
+        lengths = (torch.tensor(lens, device=device) if lens else
+                   torch.randint(1, S + 1, (B,), generator=gen,
+                                 device=device)).to(torch.int32)
+        out = decode_attention(q, k, v, lengths)
+        ref = decode_attention_plain(q, k, v, lengths)
+        err = hold(out, ref, *ATTN_TOL[dtype],
+                   f"decode B={B} S={S} H={H} KV={KV} hd={hd} {dtype}")
+        worst = max(worst, err)
+        log(f"phase 4 decode_attention B={B} S={S} H={H} KV={KV} hd={hd} "
+            f"{dtype} lengths={lens or 'random'}: max_abs_err={err:.3e} "
+            f"(rtol, atol {ATTN_TOL[dtype]})")
+        del q, k, v, out, ref
+    torch.cuda.empty_cache()
+
+    B, S, H, KV, hd = DECODE_TIMED
+    q = _randn(gen, (B, H, hd), "bfloat16", device)
+    k = _randn(gen, (B, S, KV, hd), "bfloat16", device)
+    v = _randn(gen, (B, S, KV, hd), "bfloat16", device)
+    lengths = torch.full((B,), S, dtype=torch.int32, device=device)
+    ms = cuda_ms(lambda: decode_attention(q, k, v, lengths), KERNEL_REPS)
+    plain_ms = cuda_ms(lambda: decode_attention_plain(q, k, v, lengths),
+                       PLAIN_REPS)
+    # the library yardstick: one SDPA call, the G query heads of a group
+    # as G query rows of its kv head, the length mask broadcast over them
+    G = H // KV
+    mask = (torch.arange(S, device=device)[None, :] <
+            lengths[:, None])[:, None, None, :]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    library_ms = cuda_ms(lambda: sdpa(q.view(B, KV, G, hd),
+                                      k.transpose(1, 2), v.transpose(1, 2),
+                                      attn_mask=mask), KERNEL_REPS)
+    elem = q.element_size()
+    valid = int(lengths.sum())
+    nbytes = 2 * valid * KV * hd * elem + 2 * q.numel() * elem \
+        + lengths.numel() * 4
+    flops = 4 * valid * H * hd
+    bound_ms, bound_by = _bound(nbytes, flops, BF16_FLOPS)
+    log(f"phase 4 decode_attention timed B={B} S={S} H={H} KV={KV} hd={hd} "
+        f"bf16 full lengths: kernel_ms={ms:.4f} plain_ms={plain_ms:.3f} "
+        f"sdpa_ms={library_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by}: "
+        f"{nbytes} B, {flops} flop) roofline_share={bound_ms / ms:.4f}")
+    del q, k, v, mask
+    torch.cuda.empty_cache()
+    return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms,
+                library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
+
+
+def _bound(nbytes: int, flops: int, peak: float):
+    """-> (least ms: the larger of bytes over HBM rate and flops over the
+    peak, which of the two)."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / peak * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_flash(device):
+    import torch
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    gen = torch.Generator(device=device).manual_seed(5)
+    worst = 0.0
+    for B, S, H, KV, hd, dtype, causal in FLASH_CASES:
+        q = _randn(gen, (B, S, H, hd), dtype, device)
+        k = _randn(gen, (B, S, KV, hd), dtype, device)
+        v = _randn(gen, (B, S, KV, hd), dtype, device)
+        out = flash_attention(q, k, v, causal=causal)
+        ref = flash_attention_plain(q, k, v, causal=causal)
+        err = hold(out, ref, *ATTN_TOL[dtype],
+                   f"flash B={B} S={S} H={H} KV={KV} hd={hd} {dtype} "
+                   f"causal={causal}")
+        worst = max(worst, err)
+        log(f"phase 5 flash_attention B={B} S={S} H={H} KV={KV} hd={hd} "
+            f"{dtype} causal={causal}: max_abs_err={err:.3e} "
+            f"(rtol, atol {ATTN_TOL[dtype]})")
+        del q, k, v, out, ref
+    torch.cuda.empty_cache()
+
+    B, S, H, KV, hd = FLASH_TIMED
+    q = _randn(gen, (B, S, H, hd), "bfloat16", device)
+    k = _randn(gen, (B, S, KV, hd), "bfloat16", device)
+    v = _randn(gen, (B, S, KV, hd), "bfloat16", device)
+    ms = cuda_ms(lambda: flash_attention(q, k, v), KERNEL_REPS)
+    plain_ms = cuda_ms(lambda: flash_attention_plain(q, k, v), PLAIN_REPS)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    library_ms = cuda_ms(lambda: sdpa(q.transpose(1, 2), k.transpose(1, 2),
+                                      v.transpose(1, 2), is_causal=True,
+                                      enable_gqa=True), KERNEL_REPS)
+    elem = q.element_size()
+    nbytes = (2 * q.numel() + 2 * k.numel()) * elem
+    flops = 4 * B * H * hd * S * (S + 1) // 2
+    bound_ms, bound_by = _bound(nbytes, flops, BF16_FLOPS)
+    log(f"phase 5 flash_attention timed B={B} S={S} H={H} KV={KV} hd={hd} "
+        f"bf16 causal: kernel_ms={ms:.4f} plain_ms={plain_ms:.3f} "
+        f"sdpa_ms={library_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by}: "
+        f"{flops} flop, {nbytes} B) roofline_share={bound_ms / ms:.4f} "
+        f"tflops={flops / ms / 1e9:.2f} "
+        f"(fp32 SIMT peak {FP32_FLOPS / 1e12:.0f})")
+    del q, k, v
+    torch.cuda.empty_cache()
+    return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms,
+                library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
+
+
+def serving_config():
+    from repro_torch.configs import get_config
+    return get_config(SERVE_ARCH)
+
+
+def serve_traffic(cfg):
+    """-> {cell: (requests, batch, max_new)}.  "smoke" is the JAX serve
+    driver's traffic (4-token prompts from RandomState(0)): it checks the
+    answers and the launch count.  "chat" is the serving cell (CHAT_*)."""
+    import numpy as np
+    rng = np.random.RandomState(0)
+    smoke = [{"id": f"r{i}", "prompt": rng.randint(
+        0, cfg.vocab, (SERVE_PROMPT,)).tolist()}
+        for i in range(SERVE_REQUESTS)]
+    rng = np.random.default_rng(CHAT_SEED)
+    lens = np.clip(np.rint(rng.lognormal(np.log(CHAT_PROMPT_MEDIAN),
+                                         CHAT_PROMPT_SIGMA, CHAT_REQUESTS)),
+                   1, SERVE_MAX_LEN - CHAT_NEW + 1).astype(int)
+    chat = [{"id": f"c{i}", "prompt": rng.integers(
+        0, cfg.vocab, (n,)).tolist()} for i, n in enumerate(lens)]
+    return {"smoke": (smoke, SERVE_BATCH, SERVE_NEW),
+            "chat": (chat, CHAT_BATCH, CHAT_NEW)}
+
+
+def drive_engine(cfg, params, reqs, batch, max_new, device):
+    """The serving main path: ``ServeEngine.run`` over ``reqs`` from a
+    fresh durable queue, launches counted over the run alone, answers
+    checked -> (engine, numbers)."""
+    import tempfile
+
+    import torch
+    from repro_torch.serving import DurableRequestQueue, ServeEngine
+    with tempfile.TemporaryDirectory() as tmp:
+        q = DurableRequestQueue(tmp)
+        q.submit(reqs)
+        t0 = time.perf_counter()
+        eng = ServeEngine(cfg, q, params=params, seed=0,
+                          max_len=SERVE_MAX_LEN, device=device)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()                  # the main path's run starts here
+        t0 = time.perf_counter()
+        n = eng.run(batch_size=batch, max_new=max_new)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        counts = read_counts()          # ... and ends here
+        resps = q.responses()
+        q.close()
+    ids = sorted(r["id"] for r in resps)
+    if n != len(reqs) or ids != sorted(r["id"] for r in reqs):
+        raise AssertionError(f"serve: {n} served, responses {ids}")
+    for r in resps:
+        if len(r["tokens"]) != max_new or not all(
+                0 <= t < cfg.vocab for t in r["tokens"]):
+            raise AssertionError(f"serve: bad response {r}")
+    # a batch runs its longest prompt (the others are padded to it) and
+    # max_new - 1 more steps
+    batches = [reqs[i:i + batch] for i in range(0, len(reqs), batch)]
+    longest = [max(len(r["prompt"]) for r in b) for b in batches]
+    steps = sum(p + max_new - 1 for p in longest)
+    if eng.steps != steps or \
+            counts["decode_attention"] != steps * cfg.n_layers or \
+            counts["flash_attention"] or counts["fleet_step"]:
+        raise AssertionError(f"serve: {eng.steps} steps, launches {counts}; "
+                             f"expected {steps} x {cfg.n_layers} of K4")
+    rows = sum(len(b) * (p + max_new - 1) for b, p in zip(batches, longest))
+    padded = sum(len(b) * p for b, p in zip(batches, longest))
+    prompt_tokens = sum(len(r["prompt"]) for r in reqs)
+    return eng, dict(
+        n=n, steps=steps, launches=counts["decode_attention"], init_s=init_s,
+        run_s=run_s, decode_tokens_per_s=rows / run_s,
+        generated_tokens_per_s=len(reqs) * max_new / run_s,
+        ms_per_step=run_s / steps * 1e3, pad_share=1 - prompt_tokens / padded,
+        peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+
+
+def step_numbers(cfg, params, B: int, pos_t: int, device) -> dict:
+    """One ``serve_step`` at batch B with every row at position pos_t (a
+    zero cache: the work does not depend on its values): ms (CUDA events),
+    the host's time to enqueue it, device kernel time (profiler) with K4's
+    part, K4's host cost per wrapper call, and the byte bound."""
+    import torch
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.models import init_cache, serve_step
+    cache = init_cache(cfg, B, SERVE_MAX_LEN, device)
+    tok = torch.zeros((B, 1), dtype=torch.long, device=device)
+    pos = torch.full((B,), pos_t, dtype=torch.int32, device=device)
+
+    def step():
+        serve_step(cfg, params, cache, {"tokens": tok}, pos)
+
+    with torch.inference_mode():
+        step_ms = cuda_ms(step, 10)
+        # enqueueing steps without waiting for them; near step_ms means the
+        # host, not the card, sets the pace
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(10):
+            step()
+        enqueue_ms = (time.perf_counter() - t0) * 100
+        torch.cuda.synchronize()
+        busy_ms, by_kernel = device_profile(step, 5)
+        k4_ms = kernel_device_ms(by_kernel, "decode_split_kernel",
+                                 "decode_merge_kernel")
+        # the wrapper's host cost per call, enqueued without waiting
+        q1 = torch.zeros((B, cfg.n_heads, cfg.head_dim),
+                         dtype=cache[0]["k"].dtype, device=device)
+        lengths = pos + 1
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(50):
+            decode_attention(q1, cache[0]["k"], cache[0]["v"], lengths)
+        k4_host_us = (time.perf_counter() - t0) / 50 * 1e6
+        torch.cuda.synchronize()
+    elem = params["embed"].element_size()
+    nbytes = (cfg.n_params() - cfg.vocab * cfg.d_model) * elem + \
+        B * cfg.d_model * elem + \
+        cfg.n_layers * B * (pos_t + 1) * 2 * cfg.n_kv_heads * cfg.head_dim \
+        * elem                  # weights (the embedding: B rows), the cache
+    del cache
+    torch.cuda.empty_cache()
+    return dict(step_ms=step_ms, enqueue_ms=enqueue_ms, busy_ms=busy_ms,
+                k4_ms=k4_ms, k4_host_us=k4_host_us, by_kernel=by_kernel,
+                bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, nbytes=nbytes)
+
+
+def _serve_line(r: dict, s: dict) -> str:
+    return (f"steps={r['steps']} K4 launches={r['launches']} (= steps x "
+            f"layers) init_s={r['init_s']:.3f} run_s={r['run_s']:.4f} "
+            f"decode_tokens_per_s={r['decode_tokens_per_s']:.1f} (rows x "
+            f"steps / run_s) generated_tokens_per_s="
+            f"{r['generated_tokens_per_s']:.2f} ms_per_step="
+            f"{r['ms_per_step']:.4f} pad_share={r['pad_share']:.3f} "
+            f"peak_device_gb={r['peak_gb']:.2f}; at the last position: "
+            f"serve_step_ms={s['step_ms']:.4f} step_bound_ms="
+            f"{s['bound_ms']:.4f} (bytes={s['nbytes']}) roofline_share="
+            f"{s['bound_ms'] / s['step_ms']:.4f} host_enqueue_ms="
+            f"{s['enqueue_ms']:.4f} device_busy_ms_per_step="
+            f"{s['busy_ms']:.4f} idle_share="
+            f"{1 - s['busy_ms'] / s['step_ms']:.3f} k4_device_ms_per_step="
+            f"{s['k4_ms']:.4f} k4_share_of_busy="
+            f"{s['k4_ms'] / s['busy_ms']:.3f} k4_host_us_per_call="
+            f"{s['k4_host_us']:.1f}")
+
+
+def phase_serve(device):
+    """The serving main path at full width, twice: the JAX serve driver's
+    traffic (answers and launches), then the chat cell -> (params, the
+    chat run's numbers)."""
+    import tempfile
+
+    import numpy as np
+    from repro_torch.serving import DurableRequestQueue
+    cfg = serving_config()
+    params, runs = None, {}
+    for cell, (reqs, batch, max_new) in serve_traffic(cfg).items():
+        eng, r = drive_engine(cfg, params, reqs, batch, max_new, device)
+        params = eng.params
+        del eng
+        longest = max(len(q["prompt"]) for q in reqs)
+        s = step_numbers(cfg, params, min(batch, len(reqs)),
+                         longest + max_new - 2, device)
+        runs[cell] = r
+        lens = np.array([len(q["prompt"]) for q in reqs])
+        what = ("the JAX serve driver's traffic, 4-token prompts: the "
+                "answer and launch-count smoke" if cell == "smoke" else
+                f"prompt lengths log-normal, median {CHAT_PROMPT_MEDIAN}, "
+                f"sigma {CHAT_PROMPT_SIGMA}, seed {CHAT_SEED}, cut to "
+                f"{SERVE_MAX_LEN - max_new + 1}: drawn min/median/max "
+                f"{lens.min()}/{int(np.median(lens))}/{lens.max()}")
+        log(f"phase 6 serve {cell} {cfg.name} full width ({cfg.n_layers} "
+            f"layers, d_model {cfg.d_model}, {cfg.n_params()} params, bf16, "
+            f"max_len {SERVE_MAX_LEN}; {what}): {r['n']}/{len(reqs)} "
+            f"requests answered, batch {batch}, {max_new} tokens each, "
+            + _serve_line(r, s))
+        log(f"phase 6 serve {cell}: serve_step device time by kernel at the "
+            f"last position (profiler, ms per step): {_top(s['by_kernel'])}")
+    # the serve command itself (reduced config) on the card
+    from repro_torch.launch import serve
+    with tempfile.TemporaryDirectory() as tmp:
+        serve.main(["--dir", tmp])
+        served = DurableRequestQueue(tmp)
+        answered = len(served.responses())
+        served.close()
+    if answered != SERVE_REQUESTS:
+        raise AssertionError(f"serve command: {answered} responses")
+    log(f"phase 6 python -m repro_torch.launch.serve (reduced {cfg.name}, "
+        f"cuda): {answered} responses durable")
+    return params, runs["chat"]
+
+
+def phase_prefill(device, params):
+    import torch
+    from repro_torch.launch.steps import make_prefill_step
+    cfg = serving_config()
+    gen = torch.Generator(device=device).manual_seed(7)
+    tokens = torch.randint(0, cfg.vocab, (1, PREFILL_LEN), generator=gen,
+                           device=device)
+    prefill = make_prefill_step(cfg)
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        reset_counts()                  # the prefill path starts here
+        t0 = time.perf_counter()
+        logits = prefill(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        counts = read_counts()          # ... and ends here
+        if counts["flash_attention"] != cfg.n_layers or \
+                counts["decode_attention"] or counts["fleet_step"]:
+            raise AssertionError(f"prefill: launches {counts}; expected "
+                                 f"{cfg.n_layers} of K2")
+        if logits.shape != (1, cfg.vocab) or \
+                not bool(torch.isfinite(logits).all()):
+            raise AssertionError(f"prefill: logits {tuple(logits.shape)}")
+        ms = cuda_ms(lambda: prefill(params, {"tokens": tokens}), 3)
+        busy_ms, by_kernel = device_profile(
+            lambda: prefill(params, {"tokens": tokens}), 1)
+        k2_ms = kernel_device_ms(by_kernel, "flash_fwd_kernel")
+    flops = 2 * PREFILL_LEN * (cfg.n_params() - cfg.vocab * cfg.d_model) \
+        + cfg.n_layers * 4 * cfg.n_heads * cfg.head_dim * \
+        PREFILL_LEN * (PREFILL_LEN + 1) // 2
+    bound_ms = flops / BF16_FLOPS * 1e3
+    log(f"phase 7 prefill {cfg.name} full width B=1 S={PREFILL_LEN} bf16: "
+        f"K2 launches={counts['flash_attention']} first_call_s={first_s:.3f}"
+        f" prefill_ms={ms:.3f} flop_bound_ms={bound_ms:.3f} "
+        f"(flops={flops}) roofline_share={bound_ms / ms:.4f} "
+        f"prefill_tokens_per_s={PREFILL_LEN / ms * 1e3:.1f} "
+        f"device_busy_ms={busy_ms:.3f} idle_share={1 - busy_ms / ms:.3f} "
+        f"k2_device_ms={k2_ms:.3f} k2_share_of_busy={k2_ms / busy_ms:.3f}")
+    log(f"phase 7 prefill device time by kernel (profiler, ms): "
+        f"{_top(by_kernel)}")
+    return dict(launches=counts["flash_attention"], ms=ms)
+
+
+def phase_model_check(device):
+    """yi-6b in fp32 from seed 0: kernels against plain versions for the
+    whole model, and decode == forward.  Both sides run the same fp32
+    matmuls (TF32 off); they differ only in the order the attention sums
+    are taken, carried through 32 layers: MODEL_TOL (1e-3, absolute and
+    relative) on logits of magnitude ~1."""
+    import dataclasses
+
+    import torch
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import forward, init_cache, init_params, \
+        serve_step
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(serving_config(), param_dtype="float32",
+                              compute_dtype="float32")
+    params = init_params(cfg, torch.Generator(device=device).manual_seed(0))
+    gen = torch.Generator(device=device).manual_seed(8)
+    errs = {}
+    with torch.inference_mode():
+        tokens = torch.randint(0, cfg.vocab, (1, PREFILL_LEN), generator=gen,
+                               device=device)
+        kern = make_prefill_step(cfg, True)(params, {"tokens": tokens})
+        plain = make_prefill_step(cfg, False)(params, {"tokens": tokens})
+        errs["prefill"] = hold(kern, plain, MODEL_TOL, MODEL_TOL,
+                                 "fp32 prefill logits")
+        del kern, plain
+        B = SERVE_BATCH
+        toks = torch.randint(0, cfg.vocab, (B, MODEL_STEPS), generator=gen,
+                             device=device)
+        ck = init_cache(cfg, B, 64, device)
+        cp = init_cache(cfg, B, 64, device)
+        err = 0.0
+        for t in range(MODEL_STEPS):
+            pos = torch.full((B,), t, dtype=torch.int32, device=device)
+            batch = {"tokens": toks[:, t:t + 1]}
+            lk, ck = serve_step(cfg, params, ck, batch, pos, True)
+            lp, cp = serve_step(cfg, params, cp, batch, pos, False)
+            err = max(err, hold(lk, lp, MODEL_TOL, MODEL_TOL,
+                                  f"fp32 serve_step {t}"))
+        errs["serve_steps"] = err
+        del ck, cp
+        B = 2
+        toks = toks[:B, :DECODE_FWD_LEN]
+        full = forward(cfg, params, {"tokens": toks})
+        cache = init_cache(cfg, B, DECODE_FWD_LEN, device)
+        outs = []
+        for t in range(DECODE_FWD_LEN):
+            lg, cache = serve_step(cfg, params, cache,
+                                   {"tokens": toks[:, t:t + 1]},
+                                   torch.full((B,), t, dtype=torch.int32,
+                                              device=device))
+            outs.append(lg)
+        errs["decode_vs_forward"] = hold(torch.stack(outs, dim=1), full,
+                                         MODEL_TOL, MODEL_TOL,
+                                         "fp32 decode vs forward")
+    del params
+    torch.cuda.empty_cache()
+    log(f"phase 7 model check {cfg.name} full width fp32 (tol "
+        f"rtol=atol={MODEL_TOL}): prefill S={PREFILL_LEN} last-token logits "
+        f"kernels vs plain max_abs_err={errs['prefill']:.3e}; "
+        f"{MODEL_STEPS} serve_steps B={SERVE_BATCH} kernels vs plain "
+        f"max_abs_err={errs['serve_steps']:.3e}; decode == forward at "
+        f"S={DECODE_FWD_LEN} max_abs_err={errs['decode_vs_forward']:.3e}")
+    return errs
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -336,7 +936,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(src))
-    from repro_torch.kernels.fleet_step import build_library
+    from repro_torch.kernels.build import build_libraries
 
     t_all = time.perf_counter()
     smi = subprocess.run(
@@ -348,16 +948,28 @@ def main() -> int:
     log(f"phase 1 device: {name}; nvidia-smi: {smi}; torch "
         f"{torch.__version__} CUDA {torch.version.cuda}; python "
         f"{sys.version.split()[0]}")
-    path, build_s, build_log = build_library()
-    log(f"phase 1 build: {path.name} in {build_s:.1f} s")
-    for line in build_log.splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"  ptxas: {line.strip()}")
+    t0 = time.perf_counter()
+    built = build_libraries(KERNELS)    # one nvcc per source, in parallel
+    log(f"phase 1 build: {len(built)} libraries in "
+        f"{time.perf_counter() - t0:.1f} s (" + ", ".join(
+            f"{path.name} {secs:.1f} s" for path, secs, _ in built.values())
+        + ")")
+    for kname, (_, _, build_log) in built.items():
+        for line in build_log.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  ptxas {kname}: {line.strip()}")
 
     worst = phase_matrix(device)
     summary, launches, worst_main = phase_main(device)
     worst = max(worst, worst_main)
     ref = summary["OptLinkedQ"]
+    decode = phase_decode(device)
+    flash = phase_flash(device)
+    params, serve = phase_serve(device)
+    prefill = phase_prefill(device, params)
+    del params
+    torch.cuda.empty_cache()
+    phase_model_check(device)
     kernels = [{
         "name": "fleet_step", "route": "cuda",
         "source": "src/repro_torch/csrc/fleet_step.cu",
@@ -366,6 +978,16 @@ def main() -> int:
         "ms": ref["ms"], "plain_ms": ref["plain_ms"],
         "bound_ms": ref["bound_ms"], "bound_by": "bytes",
         "library_ms": None,
+    }, {
+        "name": "decode_attention", "route": "cuda",
+        "source": "src/repro_torch/csrc/decode_attention.cu",
+        "replaces": "src/repro/kernels/decode_attention/kernel.py:63",
+        "launches": serve["launches"], **decode,
+    }, {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:71",
+        "launches": prefill["launches"], **flash,
     }]
     log(f"total {time.perf_counter() - t_all:.1f} s")
     print(smi)

@@ -1,0 +1,14 @@
+"""musicgen-medium [audio] -- decoder-only over EnCodec tokens.
+
+48L d_model=1536 24H (kv=24 => MHA) d_ff=6144 vocab=2048.  The EnCodec
+frontend is a stub: ``input_specs`` supplies precomputed frame embeddings.
+[arXiv:2306.05284; hf facebook/musicgen-medium]
+"""
+from ..models.config import ModelConfig
+
+CONFIG = ModelConfig(
+    name="musicgen-medium", family="audio",
+    n_layers=48, d_model=1536, n_heads=24, n_kv_heads=24,
+    d_ff=6144, vocab=2048,
+    embed_stub=True,
+)

@@ -2,8 +2,10 @@
 version.
 
 Each module holds the plain version (what CPU tensors run, and the oracle
-the kernel is held to on the card), a wrapper that launches the kernel for
-CUDA tensors and keeps a ``launches`` count, and the build of the CUDA
-source in ``src/repro_torch/csrc/``.  Ported so far: ``fleet_step`` (the
-fleet's opcode chunk stepper).
+the kernel is held to on the card) and a wrapper that launches the kernel
+for CUDA tensors and keeps a ``launches`` count; :mod:`.build` compiles
+the CUDA sources in ``src/repro_torch/csrc/`` and binds them.  Ported so
+far: ``fleet_step`` (the fleet's opcode chunk stepper), ``decode_attention``
+(split-K decode attention over a KV cache) and ``flash_attention``
+(causal / non-causal attention forward).
 """

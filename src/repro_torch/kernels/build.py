@@ -1,0 +1,102 @@
+"""Build and bind the port's CUDA sources.
+
+Each ``src/repro_torch/csrc/<name>.cu`` is compiled with ``nvcc`` for
+``sm_90a`` into a shared library with a plain C interface under
+``build/repro_torch/`` (listed in ``.gitignore``), at first use, keyed by a
+hash of the source, the headers beside it and the flags.  No PyTorch
+header is included, so a build takes seconds.  The wrappers bind the C
+functions through ``ctypes``: ``c_void_p`` for every pointer and for the
+stream, ``c_int`` for every int.  Each C function returns
+``cudaGetLastError()`` after its launches; :func:`check` raises if that is
+not 0.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict, Iterable, Tuple
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    from torch.utils.cpp_extension import CUDA_HOME
+    if CUDA_HOME and os.path.exists(os.path.join(CUDA_HOME, "bin", "nvcc")):
+        return os.path.join(CUDA_HOME, "bin", "nvcc")
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def _target(name: str) -> Path:
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
+
+
+def build_libraries(names: Iterable[str]) -> Dict[str, Tuple[Path, float,
+                                                              str]]:
+    """Compile ``csrc/<name>.cu`` for every name whose library is not built
+    yet, one ``nvcc`` per source, all started together -> {name: (library
+    path, build seconds, nvcc's log)}."""
+    names = list(dict.fromkeys(names))
+    out, running = {}, {}
+    for name in names:
+        lib = _target(name)
+        log = lib.with_suffix(".log")
+        if lib.exists():
+            out[name] = (lib, 0.0, log.read_text() if log.exists() else "")
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+        proc = subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        running[name] = (proc, tmp, lib, log, time.perf_counter())
+    failed = []
+    for name, (proc, tmp, lib, log, t0) in running.items():
+        text, _ = proc.communicate()
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            failed.append(f"{name}.cu: nvcc exit {proc.returncode}\n{text}")
+            continue
+        log.write_text(text)
+        os.replace(tmp, lib)
+        out[name] = (lib, seconds, text)
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    return {name: out[name] for name in names}
+
+
+@functools.lru_cache(maxsize=None)
+def load_library(name: str) -> ctypes.CDLL:
+    """The built library of ``csrc/<name>.cu`` (built here if missing)."""
+    path, _, _ = build_libraries([name])[name]
+    return ctypes.CDLL(str(path))
+
+
+def bind(lib: ctypes.CDLL, fn: str, n_pointers: int, n_ints: int):
+    """``lib.fn`` typed as (pointers..., stream, ints...) -> int."""
+    f = getattr(lib, fn)
+    f.argtypes = ([ctypes.c_void_p] * (n_pointers + 1) +
+                  [ctypes.c_int] * n_ints)
+    f.restype = ctypes.c_int
+    return f
+
+
+def check(rc: int, what: str) -> None:
+    """Raise unless the C function's ``cudaGetLastError()`` was 0."""
+    if rc != 0:
+        raise RuntimeError(f"{what} kernel launch failed: cudaError {rc}")

@@ -28,13 +28,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
-import time
 from dataclasses import dataclass
-from pathlib import Path
 from typing import Tuple
 
 import numpy as np
@@ -50,6 +44,7 @@ from ..fleet.lowering import (KIND_DEQ, KIND_ENQ, N_OPC, OPC_CLASS_P,
                               encode_program)
 from ..fleet.stepper import EPOCH_ADV_OPS
 from ..fleet.torchexec import _ARRAY_FIELDS, _SCALAR_FIELDS, _dtype
+from .build import check, load_library
 
 N_SYM = max(SYM.values()) + 1
 E_NEW_P, E_NEW_V = SYM["new_p"], SYM["new_v"]
@@ -423,12 +418,6 @@ def fleet_step_plain(st: dict, kinds: torch.Tensor, start: int,
 # the CUDA kernel: build, binding, wrapper
 # --------------------------------------------------------------------------
 
-SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "fleet_step.cu"
-BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-
-
 class _Prog(ctypes.Structure):
     _fields_ = ([(f, ctypes.c_int) for f in (
         "code", "uses_ssmem", "allocs_p", "allocs_v", "tail_guard",
@@ -450,44 +439,9 @@ class _Args(ctypes.Structure):
                 [("prog", _Prog * 2)])
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    from torch.utils.cpp_extension import CUDA_HOME
-    if CUDA_HOME and os.path.exists(os.path.join(CUDA_HOME, "bin", "nvcc")):
-        return os.path.join(CUDA_HOME, "bin", "nvcc")
-    raise RuntimeError("nvcc not found: the fleet_step kernel cannot be "
-                       "built")
-
-
-def build_library() -> Tuple[Path, float, str]:
-    """Compile ``csrc/fleet_step.cu`` (unless a library built from the same
-    source exists) -> (library path, build seconds, nvcc's log)."""
-    src = SOURCE.read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    out = BUILD_DIR / f"libfleet_step_{tag[:16]}.so"
-    log = out.with_suffix(".log")
-    if out.exists():
-        return out, 0.0, log.read_text() if log.exists() else ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                           str(SOURCE)], capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}{proc.stderr}")
-    log.write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, out)
-    return out, seconds, proc.stdout + proc.stderr
-
-
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
-    path, _, _ = build_library()
-    lib = ctypes.CDLL(str(path))
+    lib = load_library("fleet_step")
     lib.fleet_step_launch.argtypes = [ctypes.POINTER(_Args)]
     lib.fleet_step_launch.restype = ctypes.c_int
     return lib
@@ -548,9 +502,7 @@ def _launch(st, kinds, start, progs: FleetStepPrograms, err) -> None:
         p.prev_slot, p.n_micro = s.prev_slot, s.n_micro
         p.n_rows = s.table.shape[0]
         p.table_off, p.base_off = progs.table_off[j], progs.base_off[j]
-    rc = _library().fleet_step_launch(ctypes.byref(a))
-    if rc != 0:
-        raise RuntimeError(f"fleet_step kernel launch failed: cudaError {rc}")
+    check(_library().fleet_step_launch(ctypes.byref(a)), "fleet_step")
 
 
 def fleet_step(st: dict, kinds: torch.Tensor, start: int,

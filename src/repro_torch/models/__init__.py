@@ -1,0 +1,5 @@
+from .config import ModelConfig, ShapeConfig, SHAPES
+from .model import forward, init_cache, init_params, layer_specs, serve_step
+
+__all__ = ["ModelConfig", "ShapeConfig", "SHAPES", "forward", "init_cache",
+           "init_params", "layer_specs", "serve_step"]

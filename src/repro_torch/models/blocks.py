@@ -1,0 +1,95 @@
+"""Layer composition: (mixer, ffn) sub-layer pairs with pre-RMSNorm.
+
+The PyTorch counterpart of ``repro.models.blocks`` for attention mixers
+and dense FFNs.  Mamba mixers and MoE FFNs are not ported yet: they raise
+``NotImplementedError`` naming the ROADMAP item that ports them.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from .attention import (attention_block, decode_attention_block,
+                        init_attention, init_attn_cache)
+from .common import act_fn, dense_init, rms_norm
+from .config import LayerSpec, ModelConfig
+
+MAMBA_TODO = ("mamba mixers are not ported yet (ROADMAP Queue 1 item 5, "
+              "with K3, the ssm scan, in Queue 2)")
+MOE_TODO = "MoE FFNs are not ported yet (ROADMAP Queue 1 item 5)"
+
+
+def _supported(spec: LayerSpec) -> None:
+    mixer, ffn = spec
+    if mixer != "attn":
+        raise NotImplementedError(MAMBA_TODO)
+    if ffn == "moe":
+        raise NotImplementedError(MOE_TODO)
+
+
+def init_dense_ffn(cfg: ModelConfig, gen: torch.Generator, d_ff: int,
+                   device=None) -> dict:
+    d = cfg.d_model
+    dt = getattr(torch, cfg.param_dtype)
+    p = {"w1": dense_init(gen, (d, d_ff), dt, device=device),
+         "w2": dense_init(gen, (d_ff, d), dt, device=device)}
+    if cfg.act in ("swiglu", "geglu"):
+        p["w3"] = dense_init(gen, (d, d_ff), dt, device=device)
+    return p
+
+
+def dense_ffn(cfg: ModelConfig, params, x: torch.Tensor) -> torch.Tensor:
+    act = act_fn(cfg.act)
+    h = x @ params["w1"]
+    if cfg.act in ("swiglu", "geglu"):
+        h = act(h) * (x @ params["w3"])
+    else:
+        h = act(h)
+    return h @ params["w2"]
+
+
+def init_layer(cfg: ModelConfig, spec: LayerSpec, gen: torch.Generator,
+               device=None) -> dict:
+    _supported(spec)
+    _, ffn = spec
+    dt = getattr(torch, cfg.param_dtype)
+    p = {"norm1": torch.ones((cfg.d_model,), dtype=dt, device=device),
+         "mixer": init_attention(cfg, gen, device)}
+    if ffn != "none":
+        p["norm2"] = torch.ones((cfg.d_model,), dtype=dt, device=device)
+        width = cfg.dense_ff_first if ffn == "dense_first" else cfg.d_ff
+        p["ffn"] = init_dense_ffn(cfg, gen, width, device)
+    return p
+
+
+def _ffn(cfg: ModelConfig, spec: LayerSpec, params, x):
+    if spec[1] != "none":
+        x = x + dense_ffn(cfg, params["ffn"],
+                          rms_norm(x, params["norm2"], cfg.norm_eps))
+    return x
+
+
+def apply_layer(cfg: ModelConfig, spec: LayerSpec, params, x, positions,
+                use_kernels: bool = True) -> torch.Tensor:
+    _supported(spec)
+    h = rms_norm(x, params["norm1"], cfg.norm_eps)
+    x = x + attention_block(cfg, params["mixer"], h, positions, use_kernels)
+    return _ffn(cfg, spec, params, x)
+
+
+# ------------------------------------------------------------------ decode --
+def init_layer_cache(cfg: ModelConfig, spec: LayerSpec, batch: int,
+                     max_len: int, device=None) -> dict:
+    _supported(spec)
+    return init_attn_cache(cfg, batch, max_len, device)
+
+
+def apply_layer_decode(cfg: ModelConfig, spec: LayerSpec, params, x, cache,
+                       position, use_kernels: bool = True
+                       ) -> Tuple[torch.Tensor, dict]:
+    _supported(spec)
+    h = rms_norm(x, params["norm1"], cfg.norm_eps)
+    h, cache = decode_attention_block(cfg, params["mixer"], h, cache,
+                                      position, use_kernels)
+    return _ffn(cfg, spec, params, x + h), cache

@@ -1,0 +1,90 @@
+"""CausalLM: init / forward / decode over the layer stack.
+
+The PyTorch counterpart of ``repro.models.model`` for attention + dense
+FFN stacks.  Parameters are dicts of tensors under the JAX names, but the
+layers are a flat list (``params["layers"]``, prefix layers first, then
+period by period) instead of the JAX package's ``prefix`` list plus
+``stack`` of period parameters stacked on a leading axis: PyTorch runs the
+layers in a Python loop, so nothing needs stacking.  The cache is a list
+of per-layer ``{"k", "v"}`` dicts in the same order, updated in place by
+:func:`serve_step`.  ``loss_fn`` comes with the training slice.
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Tuple
+
+import torch
+
+from .blocks import (apply_layer, apply_layer_decode, init_layer,
+                     init_layer_cache)
+from .common import dense_init, rms_norm
+from .config import LayerSpec, ModelConfig
+
+
+def layer_specs(cfg: ModelConfig) -> List[LayerSpec]:
+    """The spec of every layer, in the order of ``params["layers"]``."""
+    prefix, periods, pattern = cfg.layer_pattern()
+    return list(prefix) + list(pattern) * periods
+
+
+def init_params(cfg: ModelConfig, gen: torch.Generator,
+                device=None) -> dict:
+    """Random parameters drawn from ``gen`` on ``device`` (the generator's
+    device by default): at full width, pass a CUDA generator so the draws
+    happen on the card."""
+    device = device if device is not None else gen.device
+    dt = getattr(torch, cfg.param_dtype)
+    params: Dict[str, object] = {
+        "embed": dense_init(gen, (cfg.vocab, cfg.d_model), dt, 1.0, device),
+        "final_norm": torch.ones((cfg.d_model,), dtype=dt, device=device),
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = dense_init(gen, (cfg.d_model, cfg.vocab), dt,
+                                       device=device)
+    params["layers"] = [init_layer(cfg, spec, gen, device)
+                        for spec in layer_specs(cfg)]
+    return params
+
+
+def _embed(params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    if "embeds" in batch:
+        return batch["embeds"]
+    return params["embed"][batch["tokens"]]
+
+
+def _lm_head(cfg: ModelConfig, params, x: torch.Tensor) -> torch.Tensor:
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    return x @ w
+
+
+def forward(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor],
+            use_kernels: bool = True) -> torch.Tensor:
+    """batch has "tokens" (B, S) or "embeds" (B, S, d) -> logits
+    (B, S, V)."""
+    x = _embed(params, batch)
+    B, S = x.shape[:2]
+    positions = torch.arange(S, device=x.device).expand(B, S)
+    for spec, lp in zip(layer_specs(cfg), params["layers"]):
+        x = apply_layer(cfg, spec, lp, x, positions, use_kernels)
+    return _lm_head(cfg, params, x)
+
+
+# ------------------------------------------------------------------ decode --
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               device=None) -> List[dict]:
+    return [init_layer_cache(cfg, spec, batch, max_len, device)
+            for spec in layer_specs(cfg)]
+
+
+def serve_step(cfg: ModelConfig, params, cache: List[dict],
+               batch: Dict[str, torch.Tensor], position: torch.Tensor,
+               use_kernels: bool = True
+               ) -> Tuple[torch.Tensor, List[dict]]:
+    """One decode step: batch has "tokens" (B, 1) (or "embeds" (B, 1, d));
+    position (B,) int32 is the write index.  Returns (logits (B, V),
+    cache), the cache updated in place."""
+    x = _embed(params, batch)
+    for spec, lp, lc in zip(layer_specs(cfg), params["layers"], cache):
+        x, _ = apply_layer_decode(cfg, spec, lp, x, lc, position, use_kernels)
+    return _lm_head(cfg, params, x)[:, 0], cache

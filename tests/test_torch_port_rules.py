@@ -3,10 +3,12 @@
 * ``src/repro_torch/`` and ``chip_smoke.py`` import neither jax nor the
   JAX package ``repro``;
 * the numpy-only modules the port copies from ``repro`` stay equal to
-  their originals line for line (one import in ``core/burst.py`` is made
-  relative), so the copies cannot drift silently;
+  their originals line for line (each import of ``repro`` in them is made
+  relative, and nothing else changes), so the copies cannot drift
+  silently;
 * the fleet defaults to the CUDA kernel on the CUDA device, and asking for
-  it where CUDA is missing raises instead of falling back;
+  it where CUDA is missing raises instead of falling back; so do the
+  serving engine and its command line;
 * the kernel wrapper runs its plain version on CPU tensors and counts no
   launch.
 """
@@ -31,11 +33,28 @@ COPIED = ["core/" + m + ".py" for m in (
     "memmodel", "nvram", "records", "opsched", "contention", "scheduler",
     "ssmem", "queue_base", "msq", "durable_msq", "izraelevitz", "unlinked",
     "linked", "opt_unlinked", "opt_linked", "harness", "burst")] + [
-    "fleet/lowering.py", "fleet/state.py", "fleet/stepper.py"]
-BURST_IMPORT = ("    from repro.fleet.lowering import (FleetLoweringError, "
-                "encode_program,\n",
-                "    from ..fleet.lowering import (FleetLoweringError, "
-                "encode_program,\n")
+    "fleet/lowering.py", "fleet/state.py", "fleet/stepper.py",
+    "models/config.py", "persist/__init__.py", "persist/wal.py",
+    "persist/cursors.py", "serving/request_queue.py"] + sorted(
+    "configs/" + p.name for p in (REPO / "src" / "repro" / "configs").glob(
+        "*.py"))
+CONFIG_IMPORT = ("from repro.models.config import ModelConfig\n",
+                 "from ..models.config import ModelConfig\n")
+# the one line of each copy that changes: its import of repro made relative
+CHANGED_IMPORT = {
+    "core/burst.py": (
+        "    from repro.fleet.lowering import (FleetLoweringError, "
+        "encode_program,\n",
+        "    from ..fleet.lowering import (FleetLoweringError, "
+        "encode_program,\n"),
+    "configs/__init__.py": (
+        "from repro.models.config import ModelConfig, SHAPES, "
+        "ShapeConfig\n",
+        "from ..models.config import ModelConfig, SHAPES, ShapeConfig\n"),
+    "serving/request_queue.py": (
+        "from repro.persist.wal import WriteAheadLog\n",
+        "from ..persist.wal import WriteAheadLog\n"),
+}
 
 
 def _port_sources():
@@ -66,10 +85,15 @@ def test_copied_module_equals_original(rel):
     mine = (PORT / rel).read_text().splitlines(keepends=True)
     ref = (REPO / "src" / "repro" / rel).read_text().splitlines(
         keepends=True)
-    if rel == "core/burst.py":
-        assert ref.count(BURST_IMPORT[0]) == 1
-        ref = [BURST_IMPORT[1] if line == BURST_IMPORT[0] else line
-               for line in ref]
+    if rel in CHANGED_IMPORT:
+        old, new = CHANGED_IMPORT[rel]
+    elif rel.startswith("configs/"):
+        old, new = CONFIG_IMPORT
+    else:
+        old = new = None
+    if old is not None:
+        assert ref.count(old) == 1
+        ref = [new if line == old else line for line in ref]
     assert mine == ref, f"{rel} drifted from src/repro/{rel}"
 
 
@@ -116,3 +140,22 @@ def test_error_word_flags_out_of_range_index():
     be.run_chunk(np.ones((2, 2), dtype=np.uint8), 0)
     with pytest.raises(RuntimeError, match="ring"):
         be.poll()
+
+
+def test_serving_defaults_to_cuda_and_raises_without_it(tmp_path,
+                                                       monkeypatch):
+    import inspect
+
+    from repro_torch.configs import reduced_config
+    from repro_torch.launch import serve
+    from repro_torch.serving import DurableRequestQueue, ServeEngine
+    assert inspect.signature(ServeEngine).parameters["device"].default \
+        == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    q = DurableRequestQueue(str(tmp_path / "q"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ServeEngine(reduced_config("yi-6b"), q)
+    q.close()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.main(["--dir", str(tmp_path / "serve")])
+    assert not (tmp_path / "serve").exists()
