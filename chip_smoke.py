@@ -5,8 +5,9 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It builds the port's CUDA kernels from ``src/repro_torch/csrc/``, holds
 each against its plain PyTorch version on the card, drives the port's main
 paths at full size (the fleet executor, ``repro_torch.fleet.run_fleet``;
-yi-6b serving through ``ServeEngine`` and its prefill step), and checks
-their results against independent references.  It
+yi-6b serving through ``ServeEngine`` and its prefill step; falcon-mamba-7b
+prefill and serving), and checks their results against independent
+references.  It
 imports nothing of JAX or of the JAX package.  Every failure raises and
 exits non-zero; a host without CUDA exits 2 and prints no result.
 
@@ -46,7 +47,24 @@ Phases:
 7. prefill (``make_prefill_step``, B=1, S=4096, bf16) through K2, with its
    time; then yi-6b in fp32 from the same seed, kernels against plain
    versions for the whole model (prefill last-token logits, 16
-   ``serve_step``s) and decode == forward at S=16.
+   ``serve_step``s) and decode == forward at S=16;
+8. K3, the selective scan, vs its plain version: the JAX test shapes in
+   fp32 and bf16, ragged S, din and ds, S=1 and falcon-mamba-7b's
+   prefill shape (B=1, S=4096, din 8192, ds 16, fp32); then the kernel
+   and the plain version timed at that shape beside the bound (bytes, and
+   exponentials through the SFUs);
+9. prefill main path of the mamba family: falcon-mamba-7b at full width
+   (bf16, 64 layers, random weights from seed 0), B=1, S=4096, through
+   ``make_prefill_step``, K3 launched once a layer, with its time beside
+   the FLOP bound, device busy time and K3's part (profiler);
+10. serving main path of the mamba family: ``ServeEngine`` on the same
+   model with the JAX serve command's traffic (12 requests, batch 4,
+   4-token prompts, 8 new tokens; decode runs no kernel), with tokens/s,
+   ms per step, and at the last step ``serve_step`` ms beside its byte
+   bound, host enqueue ms and device busy time; then
+   ``python -m repro_torch.launch.serve --arch falcon-mamba-7b``;
+11. falcon-mamba-7b in fp32 from the same seed: kernels against plain
+   versions on prefill last-token logits, and decode == forward at S=16.
 
 The line before the last holds one JSON object with each kernel's
 numbers; the last line is the device summary.
@@ -70,7 +88,7 @@ MAIN_QUEUES = ("DurableMSQ", "OptUnlinkedQ", "OptLinkedQ")
 MATRIX_INSTANCES = 4096
 MAIN_INSTANCES, MAIN_OPS, CHUNK = 1_000_000, 96, 48
 KERNEL_REPS, PLAIN_REPS = 10, 2
-KERNELS = ("fleet_step", "decode_attention", "flash_attention")
+KERNELS = ("fleet_step", "decode_attention", "flash_attention", "ssm_scan")
 # (rtol, atol) per dtype.  fp32 as tests/test_kernels.py.  bf16: its rtol,
 # but an atol scaled to the outputs: a row over n keys averages to about
 # 1.65/sqrt(n), 0.01-0.03 at thousands of keys, where an atol of 2e-2
@@ -131,6 +149,24 @@ SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 4, 4, 8   # the JAX serve driver's
 CHAT_REQUESTS, CHAT_BATCH, CHAT_NEW = 64, 32, 128
 CHAT_PROMPT_MEDIAN, CHAT_PROMPT_SIGMA, CHAT_SEED = 1020, 0.7, 1
 PREFILL_LEN, MODEL_STEPS, DECODE_FWD_LEN = 4096, 16, 16
+SSM_CASES = [       # (B, S, din, ds, dtype)
+    (2, 128, 64, 16, "float32"), (2, 128, 64, 16, "bfloat16"),
+    (1, 256, 128, 16, "float32"), (1, 256, 128, 16, "bfloat16"),
+    (3, 64, 96, 8, "float32"), (3, 64, 96, 8, "bfloat16"),
+    (1, 300, 96, 8, "float32"), (1, 300, 96, 8, "bfloat16"),  # ragged S
+    (2, 300, 100, 5, "float32"),                  # ragged S, din and ds
+    (2, 70, 40, 3, "bfloat16"),                   # ds 3 in lanes of 2
+    (2, 1, 64, 16, "float32"), (1, 1, 8192, 16, "bfloat16"),   # S=1
+    (2, 77, 8192, 16, "float32"),                 # B=2 at full width
+    (1, 256, 8192, 16, "float32"),                # phase 11's shape
+    (1, 4096, 8192, 16, "float32"),               # falcon-mamba-7b prefill
+]
+SSM_TIMED = (1, 4096, 8192, 16)                   # B, S, din, ds; fp32
+# fp32 rtol = atol as tests/test_kernels.py, for bf16 inputs too: both
+# sides upcast the same bf16 values and compute in fp32
+SSM_TOL = 1e-4
+SFU_EXP_PER_CLOCK = 16          # exp2 per clock per SM (Hopper SFUs)
+MAMBA_ARCH, MAMBA_CHECK_LEN = "falcon-mamba-7b", 256
 
 
 def log(msg):
@@ -333,8 +369,8 @@ def phase_main(device):
                           peak=torch.cuda.max_memory_allocated())
     counts = read_counts()              # ... and ends here
     total_launches = counts["fleet_step"]
-    if counts["decode_attention"] or counts["flash_attention"]:
-        raise AssertionError(f"fleet main path launched {counts}")
+    expect_launches(counts, {"fleet_step": len(MAIN_QUEUES) * chunks},
+                    "fleet main path")
 
     worst = 0
     summary = {}
@@ -422,8 +458,9 @@ def kernel_fns():
     from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.fleet_step import fleet_step
+    from repro_torch.kernels.ssm_scan import ssm_scan
     return {"fleet_step": fleet_step, "decode_attention": decode_attention,
-            "flash_attention": flash_attention}
+            "flash_attention": flash_attention, "ssm_scan": ssm_scan}
 
 
 def reset_counts():
@@ -433,6 +470,14 @@ def reset_counts():
 
 def read_counts() -> dict:
     return {name: fn.launches for name, fn in kernel_fns().items()}
+
+
+def expect_launches(counts: dict, expected: dict, where: str) -> None:
+    """Raise unless each kernel was launched as often as ``expected`` says
+    (0 for a kernel it does not name)."""
+    want = {name: expected.get(name, 0) for name in counts}
+    if counts != want:
+        raise AssertionError(f"{where}: launches {counts}, expected {want}")
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -627,15 +672,22 @@ def serving_config():
     return get_config(SERVE_ARCH)
 
 
-def serve_traffic(cfg):
-    """-> {cell: (requests, batch, max_new)}.  "smoke" is the JAX serve
-    driver's traffic (4-token prompts from RandomState(0)): it checks the
-    answers and the launch count.  "chat" is the serving cell (CHAT_*)."""
+def command_requests(cfg):
+    """The JAX serve command's traffic: SERVE_REQUESTS prompts of
+    SERVE_PROMPT tokens from RandomState(0)."""
     import numpy as np
     rng = np.random.RandomState(0)
-    smoke = [{"id": f"r{i}", "prompt": rng.randint(
+    return [{"id": f"r{i}", "prompt": rng.randint(
         0, cfg.vocab, (SERVE_PROMPT,)).tolist()}
         for i in range(SERVE_REQUESTS)]
+
+
+def serve_traffic(cfg):
+    """-> {cell: (requests, batch, max_new)}.  "smoke" is the JAX serve
+    command's traffic: it checks the answers and the launch count.  "chat"
+    is the serving cell (CHAT_*)."""
+    import numpy as np
+    smoke = command_requests(cfg)
     rng = np.random.default_rng(CHAT_SEED)
     lens = np.clip(np.rint(rng.lognormal(np.log(CHAT_PROMPT_MEDIAN),
                                          CHAT_PROMPT_SIGMA, CHAT_REQUESTS)),
@@ -646,10 +698,12 @@ def serve_traffic(cfg):
             "chat": (chat, CHAT_BATCH, CHAT_NEW)}
 
 
-def drive_engine(cfg, params, reqs, batch, max_new, device):
+def drive_engine(cfg, params, reqs, batch, max_new, device,
+                 per_step: dict):
     """The serving main path: ``ServeEngine.run`` over ``reqs`` from a
-    fresh durable queue, launches counted over the run alone, answers
-    checked -> (engine, numbers)."""
+    fresh durable queue, answers checked, launches counted over the run
+    alone and held to ``per_step`` ({kernel: launches a step}) -> (engine,
+    numbers)."""
     import tempfile
 
     import torch
@@ -683,27 +737,51 @@ def drive_engine(cfg, params, reqs, batch, max_new, device):
     batches = [reqs[i:i + batch] for i in range(0, len(reqs), batch)]
     longest = [max(len(r["prompt"]) for r in b) for b in batches]
     steps = sum(p + max_new - 1 for p in longest)
-    if eng.steps != steps or \
-            counts["decode_attention"] != steps * cfg.n_layers or \
-            counts["flash_attention"] or counts["fleet_step"]:
-        raise AssertionError(f"serve: {eng.steps} steps, launches {counts}; "
-                             f"expected {steps} x {cfg.n_layers} of K4")
+    if eng.steps != steps:
+        raise AssertionError(f"serve: {eng.steps} steps, expected {steps}")
+    expect_launches(counts, {k: n * steps for k, n in per_step.items()},
+                    f"serve {cfg.name}")
     rows = sum(len(b) * (p + max_new - 1) for b, p in zip(batches, longest))
     padded = sum(len(b) * p for b, p in zip(batches, longest))
     prompt_tokens = sum(len(r["prompt"]) for r in reqs)
     return eng, dict(
-        n=n, steps=steps, launches=counts["decode_attention"], init_s=init_s,
+        n=n, steps=steps, launches=counts, init_s=init_s,
         run_s=run_s, decode_tokens_per_s=rows / run_s,
         generated_tokens_per_s=len(reqs) * max_new / run_s,
         ms_per_step=run_s / steps * 1e3, pad_share=1 - prompt_tokens / padded,
         peak_gb=torch.cuda.max_memory_allocated() / 1e9)
 
 
+def _nbytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(_nbytes(v) for v in tree.values())
+    if isinstance(tree, list):
+        return sum(_nbytes(v) for v in tree)
+    return tree.numel() * tree.element_size()
+
+
+def step_bytes(cfg, params, B: int, pos_t: int) -> int:
+    """The least bytes a ``serve_step`` at batch B and position pos_t
+    moves: every weight once (the embedding only for its B rows), each
+    attention layer's valid K/V, each mamba layer's state read and
+    written (``h`` in fp32, the conv window in the compute dtype)."""
+    from repro_torch.models import layer_specs
+    mixers = [mixer for mixer, _ in layer_specs(cfg)]
+    elem = params["embed"].element_size()
+    kv = B * (pos_t + 1) * 2 * cfg.n_kv_heads * cfg.head_dim * elem
+    state = 2 * B * cfg.d_inner * (cfg.ssm_state * 4 +
+                                   (cfg.ssm_conv - 1) * elem)
+    return _nbytes(params) - _nbytes(params["embed"]) + \
+        B * cfg.d_model * elem + mixers.count("attn") * kv + \
+        mixers.count("mamba") * state
+
+
 def step_numbers(cfg, params, B: int, pos_t: int, device) -> dict:
     """One ``serve_step`` at batch B with every row at position pos_t (a
     zero cache: the work does not depend on its values): ms (CUDA events),
-    the host's time to enqueue it, device kernel time (profiler) with K4's
-    part, K4's host cost per wrapper call, and the byte bound."""
+    the host's time to enqueue it, device kernel time (profiler), the byte
+    bound and, for a model with attention, K4's device time and its host
+    cost per wrapper call."""
     import torch
     from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.models import init_cache, serve_step
@@ -714,6 +792,8 @@ def step_numbers(cfg, params, B: int, pos_t: int, device) -> dict:
     def step():
         serve_step(cfg, params, cache, {"tokens": tok}, pos)
 
+    out = {}
+    attention = "k" in cache[0]
     with torch.inference_mode():
         step_ms = cuda_ms(step, 10)
         # enqueueing steps without waiting for them; near step_ms means the
@@ -725,33 +805,30 @@ def step_numbers(cfg, params, B: int, pos_t: int, device) -> dict:
         enqueue_ms = (time.perf_counter() - t0) * 100
         torch.cuda.synchronize()
         busy_ms, by_kernel = device_profile(step, 5)
-        k4_ms = kernel_device_ms(by_kernel, "decode_split_kernel",
-                                 "decode_merge_kernel")
-        # the wrapper's host cost per call, enqueued without waiting
-        q1 = torch.zeros((B, cfg.n_heads, cfg.head_dim),
-                         dtype=cache[0]["k"].dtype, device=device)
-        lengths = pos + 1
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(50):
-            decode_attention(q1, cache[0]["k"], cache[0]["v"], lengths)
-        k4_host_us = (time.perf_counter() - t0) / 50 * 1e6
-        torch.cuda.synchronize()
-    elem = params["embed"].element_size()
-    nbytes = (cfg.n_params() - cfg.vocab * cfg.d_model) * elem + \
-        B * cfg.d_model * elem + \
-        cfg.n_layers * B * (pos_t + 1) * 2 * cfg.n_kv_heads * cfg.head_dim \
-        * elem                  # weights (the embedding: B rows), the cache
+        if attention:
+            out["k4_ms"] = kernel_device_ms(by_kernel, "decode_split_kernel",
+                                            "decode_merge_kernel")
+            # the wrapper's host cost per call, enqueued without waiting
+            q1 = torch.zeros((B, cfg.n_heads, cfg.head_dim),
+                             dtype=cache[0]["k"].dtype, device=device)
+            lengths = pos + 1
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(50):
+                decode_attention(q1, cache[0]["k"], cache[0]["v"], lengths)
+            out["k4_host_us"] = (time.perf_counter() - t0) / 50 * 1e6
+            torch.cuda.synchronize()
+    nbytes = step_bytes(cfg, params, B, pos_t)
     del cache
     torch.cuda.empty_cache()
-    return dict(step_ms=step_ms, enqueue_ms=enqueue_ms, busy_ms=busy_ms,
-                k4_ms=k4_ms, k4_host_us=k4_host_us, by_kernel=by_kernel,
+    return dict(out, step_ms=step_ms, enqueue_ms=enqueue_ms,
+                busy_ms=busy_ms, by_kernel=by_kernel,
                 bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, nbytes=nbytes)
 
 
 def _serve_line(r: dict, s: dict) -> str:
-    return (f"steps={r['steps']} K4 launches={r['launches']} (= steps x "
-            f"layers) init_s={r['init_s']:.3f} run_s={r['run_s']:.4f} "
+    line = (f"steps={r['steps']} launches={r['launches']} "
+            f"init_s={r['init_s']:.3f} run_s={r['run_s']:.4f} "
             f"decode_tokens_per_s={r['decode_tokens_per_s']:.1f} (rows x "
             f"steps / run_s) generated_tokens_per_s="
             f"{r['generated_tokens_per_s']:.2f} ms_per_step="
@@ -762,10 +839,12 @@ def _serve_line(r: dict, s: dict) -> str:
             f"{s['bound_ms'] / s['step_ms']:.4f} host_enqueue_ms="
             f"{s['enqueue_ms']:.4f} device_busy_ms_per_step="
             f"{s['busy_ms']:.4f} idle_share="
-            f"{1 - s['busy_ms'] / s['step_ms']:.3f} k4_device_ms_per_step="
-            f"{s['k4_ms']:.4f} k4_share_of_busy="
-            f"{s['k4_ms'] / s['busy_ms']:.3f} k4_host_us_per_call="
-            f"{s['k4_host_us']:.1f}")
+            f"{1 - s['busy_ms'] / s['step_ms']:.3f}")
+    if "k4_ms" in s:
+        line += (f" k4_device_ms_per_step={s['k4_ms']:.4f} k4_share_of_busy="
+                 f"{s['k4_ms'] / s['busy_ms']:.3f} k4_host_us_per_call="
+                 f"{s['k4_host_us']:.1f}")
+    return line
 
 
 def phase_serve(device):
@@ -779,7 +858,8 @@ def phase_serve(device):
     cfg = serving_config()
     params, runs = None, {}
     for cell, (reqs, batch, max_new) in serve_traffic(cfg).items():
-        eng, r = drive_engine(cfg, params, reqs, batch, max_new, device)
+        eng, r = drive_engine(cfg, params, reqs, batch, max_new, device,
+                              {"decode_attention": cfg.n_layers})
         params = eng.params
         del eng
         longest = max(len(q["prompt"]) for q in reqs)
@@ -830,10 +910,8 @@ def phase_prefill(device, params):
         torch.cuda.synchronize()
         first_s = time.perf_counter() - t0
         counts = read_counts()          # ... and ends here
-        if counts["flash_attention"] != cfg.n_layers or \
-                counts["decode_attention"] or counts["fleet_step"]:
-            raise AssertionError(f"prefill: launches {counts}; expected "
-                                 f"{cfg.n_layers} of K2")
+        expect_launches(counts, {"flash_attention": cfg.n_layers},
+                        f"prefill {cfg.name}")
         if logits.shape != (1, cfg.vocab) or \
                 not bool(torch.isfinite(logits).all()):
             raise AssertionError(f"prefill: logits {tuple(logits.shape)}")
@@ -857,12 +935,15 @@ def phase_prefill(device, params):
     return dict(launches=counts["flash_attention"], ms=ms)
 
 
-def phase_model_check(device):
-    """yi-6b in fp32 from seed 0: kernels against plain versions for the
-    whole model, and decode == forward.  Both sides run the same fp32
-    matmuls (TF32 off); they differ only in the order the attention sums
-    are taken, carried through 32 layers: MODEL_TOL (1e-3, absolute and
-    relative) on logits of magnitude ~1."""
+def phase_model_check(device, cfg, prefill_len: int, serve_steps: int,
+                      phase: int) -> dict:
+    """``cfg`` in fp32 from seed 0: kernels against plain versions for the
+    whole model (prefill last-token logits at ``prefill_len``, and
+    ``serve_steps`` decode steps when decode runs a kernel), and decode ==
+    forward.  Both sides run the same fp32 matmuls (TF32 off); they differ
+    only in the order the kernels' sums are taken (attention's, or the
+    scan's sum over states), carried through every layer: MODEL_TOL (1e-3,
+    absolute and relative) on logits of magnitude ~1."""
     import dataclasses
 
     import torch
@@ -871,34 +952,36 @@ def phase_model_check(device):
         serve_step
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = dataclasses.replace(serving_config(), param_dtype="float32",
+    cfg = dataclasses.replace(cfg, param_dtype="float32",
                               compute_dtype="float32")
     params = init_params(cfg, torch.Generator(device=device).manual_seed(0))
     gen = torch.Generator(device=device).manual_seed(8)
     errs = {}
     with torch.inference_mode():
-        tokens = torch.randint(0, cfg.vocab, (1, PREFILL_LEN), generator=gen,
+        tokens = torch.randint(0, cfg.vocab, (1, prefill_len), generator=gen,
                                device=device)
         kern = make_prefill_step(cfg, True)(params, {"tokens": tokens})
         plain = make_prefill_step(cfg, False)(params, {"tokens": tokens})
         errs["prefill"] = hold(kern, plain, MODEL_TOL, MODEL_TOL,
-                                 "fp32 prefill logits")
+                                 f"fp32 {cfg.name} prefill logits")
+        scale = float(plain.abs().max())
         del kern, plain
         B = SERVE_BATCH
         toks = torch.randint(0, cfg.vocab, (B, MODEL_STEPS), generator=gen,
                              device=device)
-        ck = init_cache(cfg, B, 64, device)
-        cp = init_cache(cfg, B, 64, device)
-        err = 0.0
-        for t in range(MODEL_STEPS):
-            pos = torch.full((B,), t, dtype=torch.int32, device=device)
-            batch = {"tokens": toks[:, t:t + 1]}
-            lk, ck = serve_step(cfg, params, ck, batch, pos, True)
-            lp, cp = serve_step(cfg, params, cp, batch, pos, False)
-            err = max(err, hold(lk, lp, MODEL_TOL, MODEL_TOL,
-                                  f"fp32 serve_step {t}"))
-        errs["serve_steps"] = err
-        del ck, cp
+        if serve_steps:
+            ck = init_cache(cfg, B, 64, device)
+            cp = init_cache(cfg, B, 64, device)
+            err = 0.0
+            for t in range(serve_steps):
+                pos = torch.full((B,), t, dtype=torch.int32, device=device)
+                batch = {"tokens": toks[:, t:t + 1]}
+                lk, ck = serve_step(cfg, params, ck, batch, pos, True)
+                lp, cp = serve_step(cfg, params, cp, batch, pos, False)
+                err = max(err, hold(lk, lp, MODEL_TOL, MODEL_TOL,
+                                      f"fp32 {cfg.name} serve_step {t}"))
+            errs["serve_steps"] = err
+            del ck, cp
         B = 2
         toks = toks[:B, :DECODE_FWD_LEN]
         full = forward(cfg, params, {"tokens": toks})
@@ -912,16 +995,193 @@ def phase_model_check(device):
             outs.append(lg)
         errs["decode_vs_forward"] = hold(torch.stack(outs, dim=1), full,
                                          MODEL_TOL, MODEL_TOL,
-                                         "fp32 decode vs forward")
+                                         f"fp32 {cfg.name} decode vs forward")
     del params
     torch.cuda.empty_cache()
-    log(f"phase 7 model check {cfg.name} full width fp32 (tol "
-        f"rtol=atol={MODEL_TOL}): prefill S={PREFILL_LEN} last-token logits "
-        f"kernels vs plain max_abs_err={errs['prefill']:.3e}; "
-        f"{MODEL_STEPS} serve_steps B={SERVE_BATCH} kernels vs plain "
-        f"max_abs_err={errs['serve_steps']:.3e}; decode == forward at "
-        f"S={DECODE_FWD_LEN} max_abs_err={errs['decode_vs_forward']:.3e}")
+    steps = (f"{serve_steps} serve_steps B={SERVE_BATCH} kernels vs plain "
+             f"max_abs_err={errs['serve_steps']:.3e}; " if serve_steps else
+             "")
+    log(f"phase {phase} model check {cfg.name} full width fp32 (tol "
+        f"rtol=atol={MODEL_TOL}; prefill logits up to {scale:.3f} in "
+        f"magnitude): prefill S={prefill_len} last-token logits "
+        f"kernels vs plain max_abs_err={errs['prefill']:.3e}; {steps}"
+        f"decode == forward at S={DECODE_FWD_LEN} max_abs_err="
+        f"{errs['decode_vs_forward']:.3e}")
     return errs
+
+
+# ---------------------------------------------------------------------------
+# phases 8-11: the mamba slice (K3, falcon-mamba-7b prefill and serve)
+# ---------------------------------------------------------------------------
+
+def scan_inputs(gen, B: int, S: int, din: int, ds: int, dtype: str, device):
+    """(dt, Bt, Ct, x, A) drawn as tests/test_kernels.py draws them:
+    dt = |N(0,1)| / 10, x, B, C ~ N(0,1) in ``dtype``; A = -(|N| + 0.1)
+    fp32."""
+    import torch
+    dt = (_randn(gen, (B, S, din), "float32", device).abs() * 0.1).to(
+        getattr(torch, dtype))
+    Bt = _randn(gen, (B, S, ds), dtype, device)
+    Ct = _randn(gen, (B, S, ds), dtype, device)
+    x = _randn(gen, (B, S, din), dtype, device)
+    A = -(_randn(gen, (din, ds), "float32", device).abs() + 0.1)
+    return dt, Bt, Ct, x, A
+
+
+def sm_clock_hz() -> float:
+    """The SM clock's maximum, as nvidia-smi reports it (MHz) -> Hz."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    return float(out) * 1e6
+
+
+def phase_scan(device):
+    import torch
+    from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_plain
+    gen = torch.Generator(device=device).manual_seed(9)
+    worst = 0.0
+    for B, S, din, ds, dtype in SSM_CASES:
+        args = scan_inputs(gen, B, S, din, ds, dtype, device)
+        y, h = ssm_scan(*args)
+        y_ref, h_ref = ssm_scan_plain(*args)
+        where = f"ssm_scan B={B} S={S} din={din} ds={ds} {dtype}"
+        err = max(hold(y, y_ref, SSM_TOL, SSM_TOL, where + " y"),
+                  hold(h, h_ref, SSM_TOL, SSM_TOL, where + " h_final"))
+        worst = max(worst, err)
+        log(f"phase 8 {where}: y and h_final max_abs_err={err:.3e} "
+            f"(rtol=atol={SSM_TOL})")
+        del args, y, h, y_ref, h_ref
+    torch.cuda.empty_cache()
+
+    B, S, din, ds = SSM_TIMED
+    args = scan_inputs(gen, B, S, din, ds, "float32", device)
+    ms = cuda_ms(lambda: ssm_scan(*args), KERNEL_REPS)
+    plain_ms = cuda_ms(lambda: ssm_scan_plain(*args), PLAIN_REPS)
+    # each input read once, y and h_final written once
+    nbytes = sum(t.numel() * t.element_size() for t in args) + \
+        (B * S * din + B * din * ds) * 4
+    exps = B * S * din * ds
+    # per (step, channel, state): dt*A, a*h, (dt*x)*B, +, *C, +
+    flops = 6 * exps + B * S * din
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    clock = sm_clock_hz()
+    exp_ms = exps / (SFU_EXP_PER_CLOCK * sms * clock) * 1e3
+    flop_ms = flops / FP32_FLOPS * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    bound_ms = max(bytes_ms, exp_ms, flop_ms)
+    bound_by = "bytes" if bound_ms == bytes_ms else "operations"
+    log(f"phase 8 ssm_scan timed B={B} S={S} din={din} ds={ds} fp32: "
+        f"kernel_ms={ms:.4f} plain_ms={plain_ms:.3f} bound_ms={bound_ms:.4f}"
+        f" ({bound_by}; bytes {nbytes} = {bytes_ms:.4f} ms at "
+        f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s; exps {exps} = {exp_ms:.4f} ms "
+        f"at {SFU_EXP_PER_CLOCK} a clock x {sms} SMs x {clock / 1e9:.3f} GHz;"
+        f" fp32 flops {flops} = {flop_ms:.4f} ms at "
+        f"{FP32_FLOPS / 1e12:.0f} TFLOP/s) roofline_share="
+        f"{bound_ms / ms:.4f} library: none")
+    del args
+    torch.cuda.empty_cache()
+    return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+
+
+def mamba_config():
+    from repro_torch.configs import get_config
+    return get_config(MAMBA_ARCH)
+
+
+def phase_mamba_prefill(device):
+    """falcon-mamba-7b at full width, bf16, through the prefill step ->
+    (params, numbers)."""
+    import torch
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import init_params
+    cfg = mamba_config()
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=device).manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    gen = torch.Generator(device=device).manual_seed(7)
+    tokens = torch.randint(0, cfg.vocab, (1, PREFILL_LEN), generator=gen,
+                           device=device)
+    prefill = make_prefill_step(cfg)
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()                  # the prefill path starts here
+        t0 = time.perf_counter()
+        logits = prefill(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        counts = read_counts()          # ... and ends here
+        expect_launches(counts, {"ssm_scan": cfg.n_layers},
+                        f"prefill {cfg.name}")
+        if logits.shape != (1, cfg.vocab) or \
+                not bool(torch.isfinite(logits).all()):
+            raise AssertionError(f"prefill: logits {tuple(logits.shape)}")
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        ms = cuda_ms(lambda: prefill(params, {"tokens": tokens}), 3)
+        busy_ms, by_kernel = device_profile(
+            lambda: prefill(params, {"tokens": tokens}), 1)
+        k3_ms = kernel_device_ms(by_kernel, "ssm_scan_fwd_kernel")
+    # every matmul weight once a token: the layers, and the lm head, which
+    # the prefill step applies at all S positions before taking the last
+    head = cfg.vocab * cfg.d_model
+    flops = 2 * PREFILL_LEN * (cfg.n_params() - head)
+    bound_ms = flops / BF16_FLOPS * 1e3
+    layers_ms = 2 * PREFILL_LEN * (cfg.n_params() - 2 * head) / BF16_FLOPS \
+        * 1e3
+    scan_exps = cfg.n_layers * PREFILL_LEN * cfg.d_inner * cfg.ssm_state
+    scan_flops = 6 * scan_exps
+    log(f"phase 9 prefill {cfg.name} full width ({cfg.n_layers} layers, "
+        f"d_model {cfg.d_model}, d_inner {cfg.d_inner}, {cfg.n_params()} "
+        f"params, bf16, init {init_s:.1f} s) B=1 S={PREFILL_LEN}: "
+        f"K3 launches={counts['ssm_scan']} first_call_s={first_s:.3f} "
+        f"prefill_ms={ms:.3f} flop_bound_ms={bound_ms:.3f} (matmul flops="
+        f"{flops} at {BF16_FLOPS / 1e12:.0f} TFLOP/s: the layers "
+        f"{layers_ms:.3f} ms, the lm head the rest; the scan's fp32 "
+        f"flops={scan_flops} and exps={scan_exps} are not in it) "
+        f"roofline_share={bound_ms / ms:.4f} prefill_tokens_per_s="
+        f"{PREFILL_LEN / ms * 1e3:.1f} device_busy_ms={busy_ms:.3f} "
+        f"idle_share={1 - busy_ms / ms:.3f} k3_device_ms={k3_ms:.3f} "
+        f"k3_share_of_busy={k3_ms / busy_ms:.3f} peak_device_gb="
+        f"{peak_gb:.2f}")
+    log(f"phase 9 prefill device time by kernel (profiler, ms): "
+        f"{_top(by_kernel)}")
+    return params, dict(launches=counts["ssm_scan"], ms=ms)
+
+
+def phase_mamba_serve(device, params):
+    """``ServeEngine`` on the full-width model with the JAX serve command's
+    traffic; then the serve command (reduced config) on the card."""
+    import tempfile
+
+    from repro_torch.launch import serve
+    from repro_torch.serving import DurableRequestQueue
+    cfg = mamba_config()
+    reqs = command_requests(cfg)
+    eng, r = drive_engine(cfg, params, reqs, SERVE_BATCH, SERVE_NEW, device,
+                          {})           # decode runs no kernel
+    del eng
+    s = step_numbers(cfg, params, SERVE_BATCH, SERVE_PROMPT + SERVE_NEW - 2,
+                     device)
+    log(f"phase 10 serve {cfg.name} full width ({cfg.n_layers} layers, bf16;"
+        f" the JAX serve command's traffic, 4-token prompts): {r['n']}/"
+        f"{len(reqs)} requests answered, batch {SERVE_BATCH}, {SERVE_NEW} "
+        f"tokens each, " + _serve_line(r, s))
+    log(f"phase 10 serve: serve_step device time by kernel at the last "
+        f"position (profiler, ms per step): {_top(s['by_kernel'])}")
+    with tempfile.TemporaryDirectory() as tmp:
+        serve.main(["--dir", tmp, "--arch", MAMBA_ARCH])
+        served = DurableRequestQueue(tmp)
+        answered = len(served.responses())
+        served.close()
+    if answered != SERVE_REQUESTS:
+        raise AssertionError(f"serve command: {answered} responses")
+    log(f"phase 10 python -m repro_torch.launch.serve --arch {MAMBA_ARCH} "
+        f"(reduced, cuda): {answered} responses durable")
+    return r
 
 
 def main() -> int:
@@ -945,7 +1205,8 @@ def main() -> int:
         check=True).stdout.strip().splitlines()[0]
     device = DEVICE
     name = torch.cuda.get_device_name(0)
-    log(f"phase 1 device: {name}; nvidia-smi: {smi}; torch "
+    log(f"phase 1 device: {name}; nvidia-smi: {smi}; max SM clock "
+        f"{sm_clock_hz() / 1e6:.0f} MHz; torch "
         f"{torch.__version__} CUDA {torch.version.cuda}; python "
         f"{sys.version.split()[0]}")
     t0 = time.perf_counter()
@@ -969,7 +1230,13 @@ def main() -> int:
     prefill = phase_prefill(device, params)
     del params
     torch.cuda.empty_cache()
-    phase_model_check(device)
+    phase_model_check(device, serving_config(), PREFILL_LEN, MODEL_STEPS, 7)
+    scan = phase_scan(device)
+    params, mamba_prefill = phase_mamba_prefill(device)
+    phase_mamba_serve(device, params)
+    del params
+    torch.cuda.empty_cache()
+    phase_model_check(device, mamba_config(), MAMBA_CHECK_LEN, 0, 11)
     kernels = [{
         "name": "fleet_step", "route": "cuda",
         "source": "src/repro_torch/csrc/fleet_step.cu",
@@ -982,12 +1249,17 @@ def main() -> int:
         "name": "decode_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/decode_attention.cu",
         "replaces": "src/repro/kernels/decode_attention/kernel.py:63",
-        "launches": serve["launches"], **decode,
+        "launches": serve["launches"]["decode_attention"], **decode,
     }, {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:71",
         "launches": prefill["launches"], **flash,
+    }, {
+        "name": "ssm_scan", "route": "cuda",
+        "source": "src/repro_torch/csrc/ssm_scan.cu",
+        "replaces": "src/repro/kernels/ssm_scan/kernel.py:58",
+        "launches": mamba_prefill["launches"], **scan,
     }]
     log(f"total {time.perf_counter() - t_all:.1f} s")
     print(smi)

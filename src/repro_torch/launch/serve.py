@@ -2,6 +2,7 @@
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b \
       --requests 12 --dir /tmp/serve1
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon-mamba-7b
 
 The port of ``python -m repro.launch.serve``, with its flags and its
 traffic (4-token prompts from ``RandomState(0)``) on the reduced config.

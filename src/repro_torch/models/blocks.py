@@ -1,7 +1,7 @@
 """Layer composition: (mixer, ffn) sub-layer pairs with pre-RMSNorm.
 
-The PyTorch counterpart of ``repro.models.blocks`` for attention mixers
-and dense FFNs.  Mamba mixers and MoE FFNs are not ported yet: they raise
+The PyTorch counterpart of ``repro.models.blocks`` for attention and
+mamba mixers and dense FFNs.  MoE FFNs are not ported yet: they raise
 ``NotImplementedError`` naming the ROADMAP item that ports them.
 """
 from __future__ import annotations
@@ -14,17 +14,14 @@ from .attention import (attention_block, decode_attention_block,
                         init_attention, init_attn_cache)
 from .common import act_fn, dense_init, rms_norm
 from .config import LayerSpec, ModelConfig
+from .mamba import (init_mamba, init_mamba_cache, mamba_block,
+                    mamba_decode_step)
 
-MAMBA_TODO = ("mamba mixers are not ported yet (ROADMAP Queue 1 item 5, "
-              "with K3, the ssm scan, in Queue 2)")
 MOE_TODO = "MoE FFNs are not ported yet (ROADMAP Queue 1 item 5)"
 
 
 def _supported(spec: LayerSpec) -> None:
-    mixer, ffn = spec
-    if mixer != "attn":
-        raise NotImplementedError(MAMBA_TODO)
-    if ffn == "moe":
+    if spec[1] == "moe":
         raise NotImplementedError(MOE_TODO)
 
 
@@ -52,10 +49,11 @@ def dense_ffn(cfg: ModelConfig, params, x: torch.Tensor) -> torch.Tensor:
 def init_layer(cfg: ModelConfig, spec: LayerSpec, gen: torch.Generator,
                device=None) -> dict:
     _supported(spec)
-    _, ffn = spec
+    mixer, ffn = spec
     dt = getattr(torch, cfg.param_dtype)
     p = {"norm1": torch.ones((cfg.d_model,), dtype=dt, device=device),
-         "mixer": init_attention(cfg, gen, device)}
+         "mixer": (init_attention(cfg, gen, device) if mixer == "attn"
+                   else init_mamba(cfg, gen, device))}
     if ffn != "none":
         p["norm2"] = torch.ones((cfg.d_model,), dtype=dt, device=device)
         width = cfg.dense_ff_first if ffn == "dense_first" else cfg.d_ff
@@ -74,15 +72,20 @@ def apply_layer(cfg: ModelConfig, spec: LayerSpec, params, x, positions,
                 use_kernels: bool = True) -> torch.Tensor:
     _supported(spec)
     h = rms_norm(x, params["norm1"], cfg.norm_eps)
-    x = x + attention_block(cfg, params["mixer"], h, positions, use_kernels)
-    return _ffn(cfg, spec, params, x)
+    if spec[0] == "attn":
+        h = attention_block(cfg, params["mixer"], h, positions, use_kernels)
+    else:
+        h = mamba_block(cfg, params["mixer"], h, use_kernels)
+    return _ffn(cfg, spec, params, x + h)
 
 
 # ------------------------------------------------------------------ decode --
 def init_layer_cache(cfg: ModelConfig, spec: LayerSpec, batch: int,
                      max_len: int, device=None) -> dict:
     _supported(spec)
-    return init_attn_cache(cfg, batch, max_len, device)
+    if spec[0] == "attn":
+        return init_attn_cache(cfg, batch, max_len, device)
+    return init_mamba_cache(cfg, batch, device)
 
 
 def apply_layer_decode(cfg: ModelConfig, spec: LayerSpec, params, x, cache,
@@ -90,6 +93,9 @@ def apply_layer_decode(cfg: ModelConfig, spec: LayerSpec, params, x, cache,
                        ) -> Tuple[torch.Tensor, dict]:
     _supported(spec)
     h = rms_norm(x, params["norm1"], cfg.norm_eps)
-    h, cache = decode_attention_block(cfg, params["mixer"], h, cache,
-                                      position, use_kernels)
+    if spec[0] == "attn":
+        h, cache = decode_attention_block(cfg, params["mixer"], h, cache,
+                                          position, use_kernels)
+    else:
+        h, cache = mamba_decode_step(cfg, params["mixer"], h, cache)
     return _ffn(cfg, spec, params, x + h), cache

@@ -1,0 +1,120 @@
+"""Mamba-1 block (selective state-space model).
+
+The PyTorch counterpart of ``repro.models.mamba``, with its casts kept:
+in_proj -> (x, z); a causal depthwise conv (a sum of shifted products in
+the compute dtype) and SiLU on x; softplus(dt) in the compute dtype, cast
+to fp32 with B and C; ``A = -exp(A_log)`` in fp32; the selective scan in
+fp32; ``y + D x`` and ``y * silu(z)`` in fp32, cast back to x's dtype
+before out_proj.  ``A_log`` and ``D`` are fp32 whatever ``param_dtype``
+is.
+
+Two scan paths, as in the JAX package: the full-sequence block (prefill)
+runs the selective scan (``use_kernels`` True: the :func:`ssm_scan`
+wrapper, which launches the CUDA kernel on CUDA tensors; False: its plain
+version); decode is the O(1) recurrent state update.  Unlike the JAX
+decode step, which returns a new ``{"h", "conv"}``, this one copies the
+new state into the cache's tensors in place.  The JAX package's
+``selective_scan_chunked`` (its plain and dry-run scan) comes with the
+training slice.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+
+from ..kernels.ssm_scan import ssm_scan, ssm_scan_plain
+from .common import dense_init
+from .config import ModelConfig
+
+
+def init_mamba(cfg: ModelConfig, gen: torch.Generator, device=None) -> dict:
+    d, din, ds, dtr = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.dt_rank_
+    dt = getattr(torch, cfg.param_dtype)
+    p = {
+        "in_proj": dense_init(gen, (d, 2 * din), dt, device=device),
+        "conv_w": dense_init(gen, (cfg.ssm_conv, din), dt, scale=1.0,
+                             device=device),
+        "x_proj": dense_init(gen, (din, dtr + 2 * ds), dt, device=device),
+        "dt_proj": dense_init(gen, (dtr, din), dt, device=device),
+        "out_proj": dense_init(gen, (din, d), dt, device=device),
+    }
+    dev = p["in_proj"].device
+    p["dt_bias"] = torch.zeros((din,), dtype=dt, device=dev)
+    # A initialised to -[1..ds] (S4D-real), stored as its log
+    p["A_log"] = torch.log(torch.arange(
+        1, ds + 1, dtype=torch.float32, device=dev)).expand(din, ds) \
+        .contiguous()
+    p["D"] = torch.ones((din,), dtype=torch.float32, device=dev)
+    return p
+
+
+def _ssm_inputs(cfg: ModelConfig, params, xc: torch.Tensor):
+    """xc (B, S, din) post-conv activations -> (dt, B_t, C_t), fp32 and
+    contiguous."""
+    ds, dtr = cfg.ssm_state, cfg.dt_rank_
+    proj = xc @ params["x_proj"]                    # (B, S, dtr + 2 ds)
+    dt_in, Bt, Ct = torch.split(proj, [dtr, ds, ds], dim=-1)
+    dt = F.softplus(dt_in @ params["dt_proj"] + params["dt_bias"]).float()
+    return (dt.contiguous(), Bt.float().contiguous(),
+            Ct.float().contiguous())
+
+
+def _causal_conv(cfg: ModelConfig, params, x: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv, kernel (k, din); x (B, S, din)."""
+    k, S = cfg.ssm_conv, x.shape[1]
+    pad = F.pad(x, (0, 0, k - 1, 0))
+    w = params["conv_w"]                            # (k, din)
+    return sum(pad[:, i:i + S, :] * w[i] for i in range(k))
+
+
+def mamba_block(cfg: ModelConfig, params, x: torch.Tensor,
+                use_kernels: bool = True) -> torch.Tensor:
+    """Full-sequence (prefill) mamba sub-layer. x (B, S, d)."""
+    xi, z = (x @ params["in_proj"]).chunk(2, dim=-1)
+    xi = F.silu(_causal_conv(cfg, params, xi))
+    dt, Bt, Ct = _ssm_inputs(cfg, params, xi)
+    A = -torch.exp(params["A_log"])
+    xf = xi.float()
+    scan = ssm_scan if use_kernels else ssm_scan_plain
+    y, _ = scan(dt, Bt, Ct, xf, A)
+    y = y + params["D"] * xf
+    y = (y * F.silu(z.float())).to(x.dtype)
+    return y @ params["out_proj"]
+
+
+# ------------------------------------------------------------------ decode --
+def init_mamba_cache(cfg: ModelConfig, batch: int, device=None) -> dict:
+    return {
+        "h": torch.zeros((batch, cfg.d_inner, cfg.ssm_state),
+                         dtype=torch.float32, device=device),
+        "conv": torch.zeros((batch, cfg.ssm_conv - 1, cfg.d_inner),
+                            dtype=getattr(torch, cfg.compute_dtype),
+                            device=device),
+    }
+
+
+def mamba_decode_step(cfg: ModelConfig, params, x: torch.Tensor,
+                      cache: dict) -> Tuple[torch.Tensor, dict]:
+    """x (B, 1, d) -> (out (B, 1, d), cache): the O(1) state update, with
+    the new ``h`` and conv window copied into ``cache`` in place."""
+    xi, z = (x[:, 0] @ params["in_proj"]).chunk(2, dim=-1)  # (B, din)
+    # conv over [cache window, new token]: exact fp32 products summed in
+    # fp32 and rounded once, as the JAX einsum does
+    win = torch.cat([cache["conv"], xi[:, None].to(cache["conv"].dtype)],
+                    dim=1)                          # (B, k, din)
+    w = params["conv_w"]                            # (k, din)
+    conv = (win.float() * w.float()).sum(dim=1)
+    xc = F.silu(conv.to(torch.promote_types(win.dtype, w.dtype)))
+    dt, Bt, Ct = _ssm_inputs(cfg, params, xc[:, None])
+    dt, Bt, Ct = dt[:, 0], Bt[:, 0], Ct[:, 0]       # (B,din),(B,ds),(B,ds)
+    A = -torch.exp(params["A_log"])
+    xf = xc.float()
+    a = torch.exp(dt[..., None] * A)                # (B, din, ds)
+    h = a * cache["h"] + (dt * xf)[..., None] * Bt[:, None, :]
+    y = (h * Ct[:, None, :]).sum(dim=-1) + params["D"] * xf
+    y = (y * F.silu(z.float())).to(x.dtype)
+    cache["h"].copy_(h)
+    cache["conv"].copy_(win[:, 1:])
+    return (y @ params["out_proj"])[:, None], cache

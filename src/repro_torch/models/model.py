@@ -1,12 +1,14 @@
 """CausalLM: init / forward / decode over the layer stack.
 
-The PyTorch counterpart of ``repro.models.model`` for attention + dense
-FFN stacks.  Parameters are dicts of tensors under the JAX names, but the
-layers are a flat list (``params["layers"]``, prefix layers first, then
-period by period) instead of the JAX package's ``prefix`` list plus
-``stack`` of period parameters stacked on a leading axis: PyTorch runs the
-layers in a Python loop, so nothing needs stacking.  The cache is a list
-of per-layer ``{"k", "v"}`` dicts in the same order, updated in place by
+The PyTorch counterpart of ``repro.models.model`` for stacks of
+attention or mamba mixers with dense FFNs (MoE FFNs are not ported yet).
+Parameters are dicts of tensors under the JAX names, but the layers are a
+flat list (``params["layers"]``, prefix layers first, then period by
+period) instead of the JAX package's ``prefix`` list plus ``stack`` of
+period parameters stacked on a leading axis: PyTorch runs the layers in a
+Python loop, so nothing needs stacking.  The cache is a list of per-layer
+dicts in the same order -- ``{"k", "v"}`` for an attention layer,
+``{"h", "conv"}`` for a mamba layer -- updated in place by
 :func:`serve_step`.  ``loss_fn`` comes with the training slice.
 """
 from __future__ import annotations

@@ -1,18 +1,21 @@
 """The port's model against the JAX package's (CPU, fp32).
 
-For every reduced arch whose layers are attention + dense FFN, the JAX
-``init_params`` are carried across by ``params_from_jax`` and the same
-numpy-made tokens go through both packages:
+For every reduced arch whose layers are attention or mamba mixers with
+dense FFNs, the JAX ``init_params`` are carried across by
+``params_from_jax`` and the same numpy-made tokens go through both
+packages:
 
 * ``forward`` logits equal JAX ``forward(use_pallas=False)``;
-* a sequence of ``serve_step`` logits, and the KV cache after every step,
-  equal JAX ``serve_step``'s;
+* a sequence of ``serve_step`` logits, and the cache after every step
+  (K/V for attention, ``h`` and the conv window for mamba), equal JAX
+  ``serve_step``'s;
 * decode == forward holds in the port (as tests/test_models_smoke.py);
-* the port's own ``init_params`` has ``cfg.n_params()`` parameters.
+* the port's own ``init_params`` has ``cfg.n_params()`` parameters;
+* the mamba block equals JAX ``mamba_block`` on both of its scan paths.
 
 Tolerance 1e-4 (absolute and relative) on logits of magnitude up to ~5:
-both packages compute in fp32, but XLA and PyTorch sum the matmuls and
-the softmax in other orders, which measured about 5e-6 here.  Mamba and
+both packages compute in fp32, but XLA and PyTorch sum the matmuls, the
+softmax and the scan in other orders, which measured about 5e-6 here.
 MoE archs are not ported yet and must raise ``NotImplementedError``.
 """
 import functools
@@ -29,14 +32,16 @@ from repro.models import forward as ref_forward  # noqa: E402
 from repro.models import init_cache as ref_init_cache  # noqa: E402
 from repro.models import init_params as ref_init_params  # noqa: E402
 from repro.models import serve_step as ref_serve_step  # noqa: E402
+from repro.models.mamba import mamba_block as ref_mamba_block  # noqa: E402
 from repro_torch.configs import reduced_config  # noqa: E402
 from repro_torch.models import (forward, init_cache,  # noqa: E402
                                 init_params, serve_step)
 from repro_torch.models.convert import params_from_jax  # noqa: E402
+from repro_torch.models.mamba import mamba_block  # noqa: E402
 
-ATTN_DENSE = ["yi-6b", "phi4-mini", "command-r-plus", "nemotron",
-              "qwen2-vl", "musicgen"]
-NOT_PORTED = ["falcon-mamba", "jamba", "deepseek-moe", "dbrx"]
+PORTED = ["yi-6b", "phi4-mini", "command-r-plus", "nemotron", "qwen2-vl",
+          "musicgen", "falcon-mamba"]
+NOT_PORTED = ["jamba", "deepseek-moe", "dbrx"]
 TOL = dict(rtol=1e-4, atol=1e-4)
 B, S = 2, 12
 
@@ -61,7 +66,7 @@ def _tokens(cfg, seed=1):
         0, cfg.vocab, (B, S)).astype(np.int32)
 
 
-@pytest.mark.parametrize("arch", ATTN_DENSE)
+@pytest.mark.parametrize("arch", PORTED)
 def test_forward_matches_jax(arch):
     cfg = reduced_config(arch)
     jp, tp = _params(arch)
@@ -73,7 +78,7 @@ def test_forward_matches_jax(arch):
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
 
 
-@pytest.mark.parametrize("arch", ATTN_DENSE)
+@pytest.mark.parametrize("arch", PORTED)
 def test_serve_steps_and_caches_match_jax(arch):
     cfg = reduced_config(arch)
     jp, tp = _params(arch)
@@ -94,12 +99,13 @@ def test_serve_steps_and_caches_match_jax(arch):
             for i in range(len(pattern)):
                 ref_c = jc["stack"][f"sub{i}"]
                 mine = tc[p * len(pattern) + i]
-                for kv in ("k", "v"):
+                assert sorted(mine) == sorted(ref_c)
+                for key in ref_c:
                     np.testing.assert_allclose(
-                        mine[kv].numpy(), np.asarray(ref_c[kv][p]), **TOL)
+                        mine[key].numpy(), np.asarray(ref_c[key][p]), **TOL)
 
 
-@pytest.mark.parametrize("arch", ATTN_DENSE)
+@pytest.mark.parametrize("arch", PORTED)
 def test_decode_matches_forward(arch):
     cfg = reduced_config(arch)
     _, tp = _params(arch)
@@ -114,7 +120,7 @@ def test_decode_matches_forward(arch):
     torch.testing.assert_close(torch.stack(outs, dim=1), full, **TOL)
 
 
-@pytest.mark.parametrize("arch", ATTN_DENSE)
+@pytest.mark.parametrize("arch", PORTED)
 def test_param_counts_match_formula(arch):
     cfg = reduced_config(arch)
     params = init_params(cfg, torch.Generator().manual_seed(0))
@@ -129,3 +135,49 @@ def test_mamba_and_moe_archs_raise(arch):
         init_params(cfg, torch.Generator().manual_seed(0))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         init_cache(cfg, 1, 8)
+
+
+@pytest.mark.parametrize("use_pallas", [False, True])
+def test_mamba_block_matches_jax(use_pallas):
+    """The port's mamba block against JAX's, layer 0 of reduced
+    falcon-mamba: use_pallas False is the chunked scan, True the Pallas
+    kernel in interpret mode; the port runs its plain scan (CPU tensors)
+    with ``use_kernels`` False and through the wrapper with True."""
+    cfg = reduced_config("falcon-mamba")
+    jp, tp = _params("falcon-mamba")
+    x = np.random.RandomState(3).randn(B, 16, cfg.d_model).astype(
+        np.float32)
+    ref = ref_mamba_block(ref_reduced_config("falcon-mamba"),
+                          jax.tree.map(lambda a: a[0],
+                                       jp["stack"]["sub0"]["mixer"]),
+                          jnp.asarray(x), use_pallas)
+    out = mamba_block(cfg, tp["layers"][0]["mixer"], torch.from_numpy(x),
+                      use_kernels=use_pallas)
+    assert out.shape == x.shape
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
+
+
+def test_mamba_keeps_fp32_leaves_in_a_bf16_model():
+    """``A_log`` and ``D`` stay fp32 whatever ``param_dtype`` is, in the
+    port's own init and through ``params_from_jax`` (bit for bit)."""
+    import dataclasses
+    cfg = dataclasses.replace(ref_reduced_config("falcon-mamba"),
+                              param_dtype="bfloat16",
+                              compute_dtype="bfloat16")
+    jp = jax.tree.map(np.asarray, ref_init_params(cfg, jax.random.PRNGKey(0)))
+    mine = dataclasses.replace(reduced_config("falcon-mamba"),
+                               param_dtype="bfloat16",
+                               compute_dtype="bfloat16")
+    for params in (params_from_jax(mine, jp),
+                   init_params(mine, torch.Generator().manual_seed(0))):
+        assert n_params(params) == mine.n_params()
+        for layer in params["layers"]:
+            mixer = layer["mixer"]
+            assert mixer["A_log"].dtype == mixer["D"].dtype == torch.float32
+            assert mixer["in_proj"].dtype == torch.bfloat16
+    carried = params_from_jax(mine, jp)["layers"][1]["mixer"]
+    np.testing.assert_array_equal(
+        carried["A_log"].numpy(), jp["stack"]["sub0"]["mixer"]["A_log"][1])
+    np.testing.assert_array_equal(
+        carried["in_proj"].view(torch.uint16).numpy(),
+        jp["stack"]["sub0"]["mixer"]["in_proj"][1].view(np.uint16))

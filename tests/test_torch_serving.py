@@ -2,8 +2,9 @@
 ``test_serving_durable_roundtrip`` and ``test_serving_crash_replays_pending``
 (tests/test_pipeline_serving.py), and token-for-token equality with the
 JAX package's ``ServeEngine`` for the same requests and parameters
-(reduced yi-6b, fp32): prompts of unequal length (padded with token 0),
-teacher-forced prompt, greedy argmax, one fence per batch.
+(reduced yi-6b and reduced falcon-mamba, fp32): prompts of unequal
+length (padded with token 0), teacher-forced prompt, greedy argmax, one
+fence per batch.
 """
 import numpy as np
 import pytest
@@ -72,6 +73,31 @@ def test_tokens_equal_the_jax_engine(tmp_path):
                 device="cpu").run(batch_size=3, max_new=6)
     assert q.responses() == ref_q.responses()
     assert len(q.responses()) == 7
+    ref_q.close()
+    q.close()
+
+
+def test_mamba_tokens_equal_the_jax_engine(tmp_path):
+    """The mamba decode step carries its state (``h`` and the conv window)
+    from step to step in the cache: tokens equal only if it advances."""
+    cfg = ref_reduced_config("falcon-mamba")
+    jp = ref_init_params(cfg, jax.random.PRNGKey(1))
+    rng = np.random.RandomState(2)
+    reqs = [{"id": f"m{i}", "prompt": rng.randint(
+        0, cfg.vocab, (3 + i % 3,)).tolist()} for i in range(5)]
+    ref_q = RefQueue(str(tmp_path / "jax"))
+    ref_q.submit(reqs)
+    RefEngine(cfg, ref_q, params=jp, max_len=32).run(batch_size=2,
+                                                     max_new=6)
+    q = DurableRequestQueue(str(tmp_path / "torch"))
+    q.submit(reqs)
+    mine = reduced_config("falcon-mamba")
+    params = params_from_jax(mine, jax.tree.map(np.asarray, jp))
+    eng = ServeEngine(mine, q, params=params, max_len=32, device="cpu")
+    eng.run(batch_size=2, max_new=6)
+    assert q.responses() == ref_q.responses()
+    assert len(q.responses()) == 5
+    assert eng.steps == 2 * (4 + 6 - 1) + (5 + 6 - 1)
     ref_q.close()
     q.close()
 
