@@ -51,17 +51,20 @@ Phases:
 8. K3, the selective scan, vs its plain version: the JAX test shapes in
    fp32 and bf16, ragged S, din and ds, S=1 and falcon-mamba-7b's
    prefill shape (B=1, S=4096, din 8192, ds 16, fp32); then the kernel
-   and the plain version timed at that shape beside the bound (bytes, and
-   exponentials through the SFUs);
+   and the plain version timed at that shape beside the bound (bytes;
+   the exps' time through the SFUs alone printed beside it, not a floor);
 9. prefill main path of the mamba family: falcon-mamba-7b at full width
    (bf16, 64 layers, random weights from seed 0), B=1, S=4096, through
    ``make_prefill_step``, K3 launched once a layer, with its time beside
    the FLOP bound, device busy time and K3's part (profiler);
 10. serving main path of the mamba family: ``ServeEngine`` on the same
-   model with the JAX serve command's traffic (12 requests, batch 4,
-   4-token prompts, 8 new tokens; decode runs no kernel), with tokens/s,
-   ms per step, and at the last step ``serve_step`` ms beside its byte
-   bound, host enqueue ms and device busy time; then
+   model (decode runs no kernel), twice: the JAX serve command's traffic
+   (12 requests, batch 4, 4-token prompts, 8 new tokens) checks the
+   answers; the batch-32 cell (64 requests, batch 32, 4-token prompts,
+   128 new tokens: a mamba step's cost does not grow with context).  For
+   each: tokens/s, ms per step, and at the last step ``serve_step`` ms
+   (CUDA events) beside its byte bound, host enqueue ms and device busy
+   time; then
    ``python -m repro_torch.launch.serve --arch falcon-mamba-7b``;
 11. falcon-mamba-7b in fp32 from the same seed: kernels against plain
    versions on prefill last-token logits, and decode == forward at S=16.
@@ -165,7 +168,9 @@ SSM_TIMED = (1, 4096, 8192, 16)                   # B, S, din, ds; fp32
 # fp32 rtol = atol as tests/test_kernels.py, for bf16 inputs too: both
 # sides upcast the same bf16 values and compute in fp32
 SSM_TOL = 1e-4
-SFU_EXP_PER_CLOCK = 16          # exp2 per clock per SM (Hopper SFUs)
+# exp2 per clock per SM through Hopper's SFUs; not a floor, since a
+# kernel may also take exps as polynomials on the FMA pipe
+SFU_EXP_PER_CLOCK = 16
 MAMBA_ARCH, MAMBA_CHECK_LEN = "falcon-mamba-7b", 256
 
 
@@ -1070,16 +1075,17 @@ def phase_scan(device):
     exp_ms = exps / (SFU_EXP_PER_CLOCK * sms * clock) * 1e3
     flop_ms = flops / FP32_FLOPS * 1e3
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    bound_ms = max(bytes_ms, exp_ms, flop_ms)
+    bound_ms = max(bytes_ms, flop_ms)
     bound_by = "bytes" if bound_ms == bytes_ms else "operations"
     log(f"phase 8 ssm_scan timed B={B} S={S} din={din} ds={ds} fp32: "
         f"kernel_ms={ms:.4f} plain_ms={plain_ms:.3f} bound_ms={bound_ms:.4f}"
         f" ({bound_by}; bytes {nbytes} = {bytes_ms:.4f} ms at "
-        f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s; exps {exps} = {exp_ms:.4f} ms "
-        f"at {SFU_EXP_PER_CLOCK} a clock x {sms} SMs x {clock / 1e9:.3f} GHz;"
-        f" fp32 flops {flops} = {flop_ms:.4f} ms at "
-        f"{FP32_FLOPS / 1e12:.0f} TFLOP/s) roofline_share="
-        f"{bound_ms / ms:.4f} library: none")
+        f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s; fp32 flops {flops} = "
+        f"{flop_ms:.4f} ms at {FP32_FLOPS / 1e12:.0f} TFLOP/s) "
+        f"roofline_share={bound_ms / ms:.4f}; exps {exps} through the SFUs "
+        f"alone = {exp_ms:.4f} ms at {SFU_EXP_PER_CLOCK} a clock x {sms} "
+        f"SMs x {clock / 1e9:.3f} GHz (not a floor: exps can also run on "
+        f"the FMA pipe); library: none")
     del args
     torch.cuda.empty_cache()
     return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms,
@@ -1152,26 +1158,46 @@ def phase_mamba_prefill(device):
     return params, dict(launches=counts["ssm_scan"], ms=ms)
 
 
+def mamba_traffic(cfg):
+    """-> {cell: (requests, batch, max_new)}.  "smoke" is the JAX serve
+    command's traffic (answers and launches).  "batch32" is the serving
+    cell: the chat cell's batch and answer length with 4-token prompts,
+    since a mamba step's cost does not grow with context (an O(1) state):
+    longer prompts add steps, not cost a step."""
+    import numpy as np
+    rng = np.random.RandomState(CHAT_SEED)
+    batch32 = [{"id": f"m{i}", "prompt": rng.randint(
+        0, cfg.vocab, (SERVE_PROMPT,)).tolist()}
+        for i in range(CHAT_REQUESTS)]
+    return {"smoke": (command_requests(cfg), SERVE_BATCH, SERVE_NEW),
+            "batch32": (batch32, CHAT_BATCH, CHAT_NEW)}
+
+
 def phase_mamba_serve(device, params):
-    """``ServeEngine`` on the full-width model with the JAX serve command's
-    traffic; then the serve command (reduced config) on the card."""
+    """``ServeEngine`` on the full-width model, the JAX serve command's
+    traffic and the batch-32 cell; then the serve command (reduced
+    config) on the card."""
     import tempfile
 
     from repro_torch.launch import serve
     from repro_torch.serving import DurableRequestQueue
     cfg = mamba_config()
-    reqs = command_requests(cfg)
-    eng, r = drive_engine(cfg, params, reqs, SERVE_BATCH, SERVE_NEW, device,
-                          {})           # decode runs no kernel
-    del eng
-    s = step_numbers(cfg, params, SERVE_BATCH, SERVE_PROMPT + SERVE_NEW - 2,
-                     device)
-    log(f"phase 10 serve {cfg.name} full width ({cfg.n_layers} layers, bf16;"
-        f" the JAX serve command's traffic, 4-token prompts): {r['n']}/"
-        f"{len(reqs)} requests answered, batch {SERVE_BATCH}, {SERVE_NEW} "
-        f"tokens each, " + _serve_line(r, s))
-    log(f"phase 10 serve: serve_step device time by kernel at the last "
-        f"position (profiler, ms per step): {_top(s['by_kernel'])}")
+    for cell, (reqs, batch, max_new) in mamba_traffic(cfg).items():
+        eng, r = drive_engine(cfg, params, reqs, batch, max_new, device,
+                              {})       # decode runs no kernel
+        del eng
+        s = step_numbers(cfg, params, batch, SERVE_PROMPT + max_new - 2,
+                         device)
+        what = ("the JAX serve command's traffic: the answer and "
+                "launch-count smoke" if cell == "smoke" else
+                f"the chat cell's batch and answer length, {SERVE_PROMPT}"
+                f"-token prompts from RandomState({CHAT_SEED})")
+        log(f"phase 10 serve {cell} {cfg.name} full width ({cfg.n_layers} "
+            f"layers, bf16; {what}): {r['n']}/{len(reqs)} requests "
+            f"answered, batch {batch}, {max_new} tokens each, "
+            + _serve_line(r, s))
+        log(f"phase 10 serve {cell}: serve_step device time by kernel at the"
+            f" last position (profiler, ms per step): {_top(s['by_kernel'])}")
     with tempfile.TemporaryDirectory() as tmp:
         serve.main(["--dir", tmp, "--arch", MAMBA_ARCH])
         served = DurableRequestQueue(tmp)
@@ -1181,7 +1207,6 @@ def phase_mamba_serve(device, params):
         raise AssertionError(f"serve command: {answered} responses")
     log(f"phase 10 python -m repro_torch.launch.serve --arch {MAMBA_ARCH} "
         f"(reduced, cuda): {answered} responses durable")
-    return r
 
 
 def main() -> int:

@@ -24,8 +24,8 @@
 // on one core and carries h in VMEM between them; here blocks run in no
 // order, so one block owns its channels for the whole sequence and loops
 // over time itself, with h in registers.  A block holds 32 channels of one
-// batch row, four lanes per channel, each lane 2 states (ds <= 8) or 4
-// (ds <= 16); states past ds have A = B = C = 0 and stay 0.  Four lanes
+// batch row, four lanes per channel, each lane 4 states (ds <= 16);
+// states past ds have A = B = C = 0 and stay 0.  Four lanes
 // a channel, not one thread a channel: at B=1 and din 8192 one thread a
 // channel would be 256 warps for 132 SMs; four lanes make it 1,024 warps,
 // while a lane still holds enough states for a step's exps to overlap.
@@ -50,6 +50,8 @@ constexpr int DTYPE_F32 = 0;          // element codes passed by the wrapper
 constexpr int DTYPE_BF16 = 1;
 constexpr int CH = 32;                // channels per block
 constexpr int LANES = 4;              // lanes per channel
+constexpr int NS = 4;                 // states per lane
+constexpr int DSP = LANES * NS;       // ds padded to 16
 constexpr int THREADS = CH * LANES;   // 128
 constexpr int T = 64;                 // time steps per staged chunk
 constexpr int XROWS = THREADS / CH;   // rows of a dt/x tile a pass loads
@@ -74,26 +76,16 @@ struct ScanArgs {
   int S, din, ds;
 };
 
-// NS (2 or 4) consecutive floats of a B or C row, aligned to NS floats.
-template <int NS>
+// NS consecutive floats of a B or C row, aligned to NS floats.
 __device__ __forceinline__ void load_states(const float* p, float* out) {
-  if constexpr (NS == 4) {
-    const float4 v = *reinterpret_cast<const float4*>(p);
-    out[0] = v.x;
-    out[1] = v.y;
-    out[2] = v.z;
-    out[3] = v.w;
-  } else {
-    static_assert(NS == 2, "two or four states a lane");
-    const float2 v = *reinterpret_cast<const float2*>(p);
-    out[0] = v.x;
-    out[1] = v.y;
-  }
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  out[0] = v.x;
+  out[1] = v.y;
+  out[2] = v.z;
+  out[3] = v.w;
 }
 
-template <int NS>
 struct Tiles {
-  static constexpr int DSP = LANES * NS;    // ds padded
   float dt[T][CH];
   float x[T][CH];
   float y[T][YST];
@@ -103,10 +95,10 @@ struct Tiles {
 
 // One chunk's share of this thread, held in registers between its loads
 // from device memory and its store to shared memory.
-template <typename Tin, int NS>
+template <typename Tin>
 struct Staged {
   static constexpr int NX = T * CH / THREADS;                    // 16
-  static constexpr int NB = (T * Tiles<NS>::DSP + THREADS - 1) / THREADS;
+  static constexpr int NB = (T * DSP + THREADS - 1) / THREADS;
   float dt[NX], x[NX], B[NB], C[NB];
 
   // Load the chunk at t0.  Steps past S and channels past din read 0.
@@ -132,7 +124,7 @@ struct Staged {
     }
   }
 
-  __device__ __forceinline__ void stash(Tiles<NS>& s, int ds) const {
+  __device__ __forceinline__ void stash(Tiles& s, int ds) const {
     const int tid = threadIdx.x;
 #pragma unroll
     for (int i = 0; i < NX; ++i) {
@@ -150,10 +142,10 @@ struct Staged {
   }
 };
 
-template <typename Tin, int NS>
+template <typename Tin>
 __global__ void __launch_bounds__(THREADS)
 ssm_scan_fwd_kernel(const ScanArgs a) {
-  __shared__ Tiles<NS> s;
+  __shared__ Tiles s;
   const int tid = threadIdx.x;
   const int cl = tid / LANES, g = tid % LANES;
   const int b = blockIdx.y, c0 = blockIdx.x * CH, c = c0 + cl;
@@ -172,12 +164,12 @@ ssm_scan_fwd_kernel(const ScanArgs a) {
     h[j] = 0.f;
   }
   // the padding states' columns of the B and C tiles stay 0
-  for (int e = tid; e < T * Tiles<NS>::DSP; e += THREADS) {
+  for (int e = tid; e < T * DSP; e += THREADS) {
     (&s.B[0][0])[e] = 0.f;
     (&s.C[0][0])[e] = 0.f;
   }
 
-  Staged<Tin, NS> next;
+  Staged<Tin> next;
   next.fetch(a, dtg, xg, Bg, Cg, c0, 0);
   const int chunks = (a.S + T - 1) / T;
   for (int k = 0; k < chunks; ++k) {
@@ -196,8 +188,8 @@ ssm_scan_fwd_kernel(const ScanArgs a) {
         const float d = s.dt[t][cl];
         const float dx = d * s.x[t][cl];
         float Bv[NS], Cv[NS];
-        load_states<NS>(&s.B[t][g * NS], Bv);
-        load_states<NS>(&s.C[t][g * NS], Cv);
+        load_states(&s.B[t][g * NS], Bv);
+        load_states(&s.C[t][g * NS], Cv);
         float acc = 0.f;
 #pragma unroll
         for (int j = 0; j < NS; ++j) {
@@ -221,7 +213,7 @@ ssm_scan_fwd_kernel(const ScanArgs a) {
     __syncthreads();
     const int col = c0 + tid % CH;
 #pragma unroll
-    for (int i = 0; i < Staged<Tin, NS>::NX; ++i) {
+    for (int i = 0; i < Staged<Tin>::NX; ++i) {
       const int r = tid / CH + i * XROWS;
       if (t0 + r < a.S && col < a.din)
         a.y[(row0 + t0 + r) * a.din + col] = s.y[r][tid % CH];
@@ -237,18 +229,11 @@ ssm_scan_fwd_kernel(const ScanArgs a) {
   }
 }
 
-template <typename Tin, int NS>
+template <typename Tin>
 int run(const ScanArgs& a, int B, cudaStream_t stream) {
   const dim3 grid((a.din + CH - 1) / CH, B);
-  ssm_scan_fwd_kernel<Tin, NS><<<grid, THREADS, 0, stream>>>(a);
+  ssm_scan_fwd_kernel<Tin><<<grid, THREADS, 0, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
-}
-
-template <typename Tin>
-int dispatch_state(const ScanArgs& a, int B, cudaStream_t stream) {
-  if (a.ds <= 8) return run<Tin, 2>(a, B, stream);
-  if (a.ds <= 16) return run<Tin, 4>(a, B, stream);
-  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -258,13 +243,13 @@ extern "C" int ssm_scan_launch(const void* dt, const void* x, const void* Bt,
                                const void* Ct, const void* A, void* y,
                                void* h, void* stream, int dtype, int B,
                                int S, int din, int ds) {
-  if (B <= 0 || B > 65535 || S <= 0 || din <= 0 || ds <= 0)
+  if (B <= 0 || B > 65535 || S <= 0 || din <= 0 || ds <= 0 || ds > DSP)
     return static_cast<int>(cudaErrorInvalidValue);
   const ScanArgs a{dt, x, Bt, Ct, static_cast<const float*>(A),
                    static_cast<float*>(y), static_cast<float*>(h), S, din,
                    ds};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == DTYPE_F32) return dispatch_state<float>(a, B, st);
-  if (dtype == DTYPE_BF16) return dispatch_state<__nv_bfloat16>(a, B, st);
+  if (dtype == DTYPE_F32) return run<float>(a, B, st);
+  if (dtype == DTYPE_BF16) return run<__nv_bfloat16>(a, B, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
