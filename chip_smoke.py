@@ -27,14 +27,18 @@ Phases:
    device memory and (from a second, profiled run) host seconds per
    runner phase;
 4. K4, decode attention, vs its plain version: the JAX test shapes in
-   fp32 and bf16, edge lengths 1 and S, a ragged S, yi-6b's decode shape
-   (B=16, S=32768, bf16, random lengths) and both serving cells' shapes
-   (S=2048, B=4 with lengths 1-11 and B=32); then the kernel, the plain
-   version and one PyTorch SDPA call timed at B=128, S=32768 beside the
-   byte bound;
+   fp32 and bf16, edge lengths 1 and S, a ragged S, lengths 1, 15, 17
+   and 63 at G = 1, 3 and 16, yi-6b's decode shape (B=16, S=32768, bf16,
+   random lengths) and both serving cells' shapes (S=2048, B=4 with
+   lengths 1-11 and B=32); the HMMA instructions of the bf16 split
+   kernel in the built library (none fails the phase); then the kernel,
+   the plain version and one PyTorch SDPA call timed at B=128, S=32768
+   beside the byte bound, with TFLOP/s and kernel_ms / sdpa_ms;
 5. K2, flash attention, vs its plain version: the JAX test shapes,
-   non-causal, ragged S and yi-6b's prefill shape (B=1, S=4096, bf16);
-   then the three timed at that shape beside the FLOP bound;
+   non-causal, ragged S, S = 1, 15, 17 and 65 causal and not, and yi-6b's
+   prefill shape (B=1, S=4096, bf16); the HMMA instructions of the bf16
+   kernel; then the three timed at that shape beside the FLOP bound,
+   with TFLOP/s and kernel_ms / sdpa_ms;
 6. serving main path: ``ServeEngine`` on yi-6b at full width (bf16, 32
    layers, random weights from seed 0, max_len 2048) through K4, twice:
    the JAX serve command's traffic (12 requests, batch 4, 4-token prompts,
@@ -119,6 +123,9 @@ DECODE_CASES = [    # (B, S, H, KV, hd, dtype, lengths or None = random)
     # the smoke serve's shape: 32 splits of 64 keys, all but one empty
     (4, 2048, 32, 4, 128, "bfloat16", [1, 4, 8, 11]),
     (32, 2048, 32, 4, 128, "bfloat16", None),     # the chat serve's shape
+] + [  # lengths at and around a warp's 16 keys and a step's 64; G = 1, 3, 16
+    (4, 100, H, 2, 128, dtype, [1, 15, 17, 63])
+    for H in (2, 6, 32) for dtype in ("float32", "bfloat16")
 ]
 DECODE_TIMED = (128, 32768, 32, 4, 128)           # B, S, H, KV, hd; bf16
 FLASH_CASES = [     # (B, S, H, KV, hd, dtype, causal)
@@ -139,6 +146,9 @@ FLASH_CASES = [     # (B, S, H, KV, hd, dtype, causal)
     (2, 100, 4, 1, 16, "float32", True), (2, 100, 4, 1, 16, "bfloat16",
                                           True),  # reduced yi-6b
     (1, 4096, 32, 4, 128, "bfloat16", True),      # yi-6b prefill
+] + [  # S at and around the 16-row and 64-key tiles of the mma kernel
+    (2, S, 8, 2, 128, dtype, causal) for S in (1, 15, 17, 65)
+    for causal in (True, False) for dtype in ("float32", "bfloat16")
 ]
 FLASH_TIMED = (1, 4096, 32, 4, 128)               # B, S, H, KV, hd; bf16
 SERVE_ARCH, SERVE_MAX_LEN, SERVE_REQUESTS = "yi-6b", 2048, 12
@@ -559,6 +569,22 @@ def _randn(gen, shape, dtype, device):
         getattr(torch, dtype))
 
 
+def tensor_core_check(lib: str, kernel: str, phase: int) -> int:
+    """The HMMA (tensor-core) instructions of each instantiation of the
+    bf16 ``kernel`` in the built ``lib``, from ``cuobjdump -sass``; raises
+    when there is none -> their sum."""
+    from repro_torch.kernels.build import sass_opcode_counts
+    counts = {fn: n for fn, n in sass_opcode_counts(lib, "HMMA").items()
+              if kernel in fn}
+    log(f"phase {phase} {lib}: HMMA instructions of {kernel} "
+        f"(cuobjdump -sass, {len(counts)} instantiations): " +
+        ", ".join(f"{fn} {n}" for fn, n in sorted(counts.items())))
+    if not counts or min(counts.values()) == 0:
+        raise AssertionError(f"{lib}: {kernel} has no HMMA instruction "
+                             f"{counts}")
+    return sum(counts.values())
+
+
 def phase_decode(device):
     import torch
     from repro_torch.kernels.decode_attention import (decode_attention,
@@ -582,6 +608,7 @@ def phase_decode(device):
             f"(rtol, atol {ATTN_TOL[dtype]})")
         del q, k, v, out, ref
     torch.cuda.empty_cache()
+    tensor_core_check("decode_attention", "decode_split_mma_kernel", 4)
 
     B, S, H, KV, hd = DECODE_TIMED
     q = _randn(gen, (B, H, hd), "bfloat16", device)
@@ -608,8 +635,10 @@ def phase_decode(device):
     bound_ms, bound_by = _bound(nbytes, flops, BF16_FLOPS)
     log(f"phase 4 decode_attention timed B={B} S={S} H={H} KV={KV} hd={hd} "
         f"bf16 full lengths: kernel_ms={ms:.4f} plain_ms={plain_ms:.3f} "
-        f"sdpa_ms={library_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by}: "
-        f"{nbytes} B, {flops} flop) roofline_share={bound_ms / ms:.4f}")
+        f"sdpa_ms={library_ms:.4f} kernel_over_sdpa={ms / library_ms:.3f} "
+        f"bound_ms={bound_ms:.4f} ({bound_by}: {nbytes} B, {flops} flop) "
+        f"roofline_share={bound_ms / ms:.4f} "
+        f"tb_per_s={nbytes / ms / 1e9:.3f} tflops={flops / ms / 1e9:.2f}")
     del q, k, v, mask
     torch.cuda.empty_cache()
     return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms,
@@ -645,6 +674,7 @@ def phase_flash(device):
             f"(rtol, atol {ATTN_TOL[dtype]})")
         del q, k, v, out, ref
     torch.cuda.empty_cache()
+    tensor_core_check("flash_attention", "flash_fwd_mma_kernel", 5)
 
     B, S, H, KV, hd = FLASH_TIMED
     q = _randn(gen, (B, S, H, hd), "bfloat16", device)
@@ -662,10 +692,11 @@ def phase_flash(device):
     bound_ms, bound_by = _bound(nbytes, flops, BF16_FLOPS)
     log(f"phase 5 flash_attention timed B={B} S={S} H={H} KV={KV} hd={hd} "
         f"bf16 causal: kernel_ms={ms:.4f} plain_ms={plain_ms:.3f} "
-        f"sdpa_ms={library_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by}: "
-        f"{flops} flop, {nbytes} B) roofline_share={bound_ms / ms:.4f} "
-        f"tflops={flops / ms / 1e9:.2f} "
-        f"(fp32 SIMT peak {FP32_FLOPS / 1e12:.0f})")
+        f"sdpa_ms={library_ms:.4f} kernel_over_sdpa={ms / library_ms:.3f} "
+        f"bound_ms={bound_ms:.4f} ({bound_by}: {flops} flop, {nbytes} B) "
+        f"roofline_share={bound_ms / ms:.4f} tflops={flops / ms / 1e9:.2f} "
+        f"sdpa_tflops={flops / library_ms / 1e9:.2f} (bf16 tensor-core "
+        f"peak {BF16_FLOPS / 1e12:.0f})")
     del q, k, v
     torch.cuda.empty_cache()
     return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms,
@@ -811,7 +842,8 @@ def step_numbers(cfg, params, B: int, pos_t: int, device) -> dict:
         torch.cuda.synchronize()
         busy_ms, by_kernel = device_profile(step, 5)
         if attention:
-            out["k4_ms"] = kernel_device_ms(by_kernel, "decode_split_kernel",
+            out["k4_ms"] = kernel_device_ms(by_kernel,
+                                            "decode_split_mma_kernel",
                                             "decode_merge_kernel")
             # the wrapper's host cost per call, enqueued without waiting
             q1 = torch.zeros((B, cfg.n_heads, cfg.head_dim),
@@ -923,7 +955,7 @@ def phase_prefill(device, params):
         ms = cuda_ms(lambda: prefill(params, {"tokens": tokens}), 3)
         busy_ms, by_kernel = device_profile(
             lambda: prefill(params, {"tokens": tokens}), 1)
-        k2_ms = kernel_device_ms(by_kernel, "flash_fwd_kernel")
+        k2_ms = kernel_device_ms(by_kernel, "flash_fwd_mma_kernel")
     flops = 2 * PREFILL_LEN * (cfg.n_params() - cfg.vocab * cfg.d_model) \
         + cfg.n_layers * 4 * cfg.n_heads * cfg.head_dim * \
         PREFILL_LEN * (PREFILL_LEN + 1) // 2

@@ -8,7 +8,8 @@ header is included, so a build takes seconds.  The wrappers bind the C
 functions through ``ctypes``: ``c_void_p`` for every pointer and for the
 stream, ``c_int`` for every int.  Each C function returns
 ``cudaGetLastError()`` after its launches; :func:`check` raises if that is
-not 0.
+not 0.  :func:`sass_opcode_counts` reads the built machine code back
+(``cuobjdump -sass``), to show which instructions a kernel compiled to.
 """
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -94,6 +96,31 @@ def bind(lib: ctypes.CDLL, fn: str, n_pointers: int, n_ints: int):
                   [ctypes.c_int] * n_ints)
     f.restype = ctypes.c_int
     return f
+
+
+def parse_sass_counts(sass: str, opcode: str) -> Dict[str, int]:
+    """{function: instructions of ``opcode``} in ``cuobjdump -sass`` text;
+    ``HMMA`` counts ``HMMA.16816.F32.BF16`` and the other HMMA forms."""
+    counts: Dict[str, int] = {}
+    fn = None
+    pattern = re.compile(rf"\b{re.escape(opcode)}(\.|\s)")
+    for line in sass.splitlines():
+        if line.strip().startswith("Function :"):
+            fn = line.split(":", 1)[1].strip()
+            counts[fn] = 0
+        elif fn is not None and pattern.search(line):
+            counts[fn] += 1
+    return counts
+
+
+def sass_opcode_counts(name: str, opcode: str) -> Dict[str, int]:
+    """{kernel function: instructions of ``opcode``} in the machine code of
+    the built ``csrc/<name>.cu`` library."""
+    path, _, _ = build_libraries([name])[name]
+    tool = Path(_nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "-sass", str(path)], check=True,
+                          capture_output=True, text=True).stdout
+    return parse_sass_counts(sass, opcode)
 
 
 def check(rc: int, what: str) -> None:

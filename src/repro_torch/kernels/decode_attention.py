@@ -37,6 +37,7 @@ NEG_INF = -1e30
 BLOCK_K = 64                # keys per tile of the kernel
 HEAD_DIMS = (16, 32, 64, 128)
 MAX_GROUP = 16              # query heads per kv head
+BLOCKS_PER_SM = 8           # split target of the grid
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -62,9 +63,9 @@ def _sm_count(index: int) -> int:
 
 def split_plan(B: int, S: int, KV: int, sm_count: int):
     """-> (n_splits, split_len): enough (batch, kv head, split) blocks for
-    about eight per SM, each split a whole number of key tiles."""
+    about BLOCKS_PER_SM per SM, each split a whole number of key tiles."""
     tiles = -(-S // BLOCK_K)
-    n = max(1, min(tiles, -(-8 * sm_count // (B * KV))))
+    n = max(1, min(tiles, -(-BLOCKS_PER_SM * sm_count // (B * KV))))
     split_len = -(-tiles // n) * BLOCK_K
     return -(-S // split_len), split_len
 

@@ -110,7 +110,7 @@ def test_decode_plain_edge_lengths(lens):
 
 
 @pytest.mark.parametrize("B,S,KV", [(16, 32768, 4), (128, 32768, 4),
-                                    (4, 2048, 4), (2, 77, 1)])
+                                    (4, 2048, 4), (32, 2048, 4), (2, 77, 1)])
 def test_decode_split_plan_covers_the_cache(B, S, KV):
     """Every split is whole tiles, the splits cover [0, S) exactly once
     and none is empty."""

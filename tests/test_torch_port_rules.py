@@ -1,7 +1,7 @@
 """Rules the PyTorch port keeps (CPU).
 
-* ``src/repro_torch/`` and ``chip_smoke.py`` import neither jax nor the
-  JAX package ``repro``;
+* ``src/repro_torch/``, ``chip_smoke.py`` and ``chip_variants.py``
+  import neither jax nor the JAX package ``repro``;
 * the numpy-only modules the port copies from ``repro`` stay equal to
   their originals line for line (each import of ``repro`` in them is made
   relative, and nothing else changes), so the copies cannot drift
@@ -58,7 +58,8 @@ CHANGED_IMPORT = {
 
 
 def _port_sources():
-    return sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    return sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py",
+                                         REPO / "chip_variants.py"]
 
 
 @pytest.mark.parametrize("path", _port_sources(),
