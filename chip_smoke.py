@@ -22,10 +22,14 @@ Phases:
 3. main path: DurableMSQ, OptUnlinkedQ and OptLinkedQ under optane-clwb
    at 1,000,000 instances x 96 ops, chunk 48, on the kernel, with
    ``check_instances`` 8/8, kernel launches counted, the kernel stepped
-   side by side with the plain version at that size, and per queue the
-   kernel's and the plain version's time per chunk, the byte bound, peak
-   device memory and (from a second, profiled run) host seconds per
-   runner phase;
+   side by side with the plain version at that size, and per queue:
+   the kernel's and the plain version's time on chunk 0 (from the
+   uniform start) and on chunk 1 (from the state chunk 0 leaves), each
+   beside its byte bound (sectors counted in the reference's [N, X]
+   layout) and the sectors the port's warp tiles touch; peak device
+   memory; host seconds per runner phase from a second, profiled run;
+   and the host side of the counts (device-to-host copy, widening to
+   int64, merge) timed part by part;
 4. K4, decode attention, vs its plain version: the JAX test shapes in
    fp32 and bf16, edge lengths 1 and S, a ragged S, lengths 1, 15, 17
    and 63 at G = 1, 3 and 16, yi-6b's decode shape (B=16, S=32768, bf16,
@@ -54,13 +58,17 @@ Phases:
    ``serve_step``s) and decode == forward at S=16;
 8. K3, the selective scan, vs its plain version: the JAX test shapes in
    fp32 and bf16, ragged S, din and ds, S=1 and falcon-mamba-7b's
-   prefill shape (B=1, S=4096, din 8192, ds 16, fp32); then the kernel
-   and the plain version timed at that shape beside the bound (bytes;
-   the exps' time through the SFUs alone printed beside it, not a floor);
+   prefill shape (B=1, S=4096, din 8192, ds 16, fp32 and bf16); then the
+   kernel and the plain version timed at that shape with bf16 inputs
+   (the main path's) and fp32 inputs, each beside the byte bound of the
+   bytes that dtype hands it (the exps' time through the SFUs alone
+   printed beside it, not a floor);
 9. prefill main path of the mamba family: falcon-mamba-7b at full width
    (bf16, 64 layers, random weights from seed 0), B=1, S=4096, through
    ``make_prefill_step``, K3 launched once a layer, with its time beside
-   the FLOP bound, device busy time and K3's part (profiler);
+   the FLOP bound, device busy time and K3's part (profiler); then the
+   prefill with the scan fed fp32 copies of its inputs, whose logits
+   must be bit-identical, with its time;
 10. serving main path of the mamba family: ``ServeEngine`` on the same
    model (decode runs no kernel), twice: the JAX serve command's traffic
    (12 requests, batch 4, 4-token prompts, 8 new tokens) checks the
@@ -173,8 +181,10 @@ SSM_CASES = [       # (B, S, din, ds, dtype)
     (2, 77, 8192, 16, "float32"),                 # B=2 at full width
     (1, 256, 8192, 16, "float32"),                # phase 11's shape
     (1, 4096, 8192, 16, "float32"),               # falcon-mamba-7b prefill
+    (1, 4096, 8192, 16, "bfloat16"),              # ... in its bf16 feed
 ]
-SSM_TIMED = (1, 4096, 8192, 16)                   # B, S, din, ds; fp32
+SSM_TIMED = (1, 4096, 8192, 16)                   # B, S, din, ds
+SSM_TIMED_DTYPES = ("bfloat16", "float32")        # the main path's first
 # fp32 rtol = atol as tests/test_kernels.py, for bf16 inputs too: both
 # sides upcast the same bf16 values and compute in fp32
 SSM_TOL = 1e-4
@@ -318,15 +328,23 @@ def _sectors(byte_mask) -> int:
     return int(m.view(-1, 32).any(dim=1).sum())
 
 
-def reached_sectors(before: dict, after: dict, reach: dict):
+def reached_sectors(before: dict, after: dict, reach: dict,
+                    reference_layout: bool):
     """-> (sectors the chunk reached, sectors it changed) over the line
     planes, rings, stacks and limbo.  ``reach`` is the plain version's
     record of every position the chunk read or wrote; a changed byte
-    outside it raises."""
+    outside it raises.  The port's state is in warp tiles; with
+    ``reference_layout`` the sectors are counted in the reference's
+    ``[N, X]`` layout instead (the byte bound's yardstick), else as the
+    port's layout lays them out."""
     import torch
+    from repro_torch.fleet.torchexec import from_tiles
+    n = before["head"].shape[0]
     reached = changed = 0
     for key, r in reach.items():
         a, b = after[key], before[key]
+        if reference_layout:
+            r, a, b = (from_tiles(t, n) for t in (r, a, b))
         mask = r.unsqueeze(-1).expand(*r.shape, a.element_size()).reshape(-1)
         diff = a.view(torch.uint8).reshape(-1) != \
             b.view(torch.uint8).reshape(-1)
@@ -334,12 +352,14 @@ def reached_sectors(before: dict, after: dict, reach: dict):
             raise AssertionError(f"{key}: a changed byte was not reached")
         reached += _sectors(mask)
         changed += _sectors(diff)
+        del r, a, b, mask, diff
     return reached, changed
 
 
-def time_chunk(step, st, snapshot, kinds, progs, err, reps):
-    """Mean ms of ``step`` on chunk 0 from the snapshot state, CUDA events
-    around the step alone (the restore copy in between also evicts L2)."""
+def time_chunk(step, st, snapshot, kinds, start, progs, err, reps):
+    """Mean ms of ``step`` on the chunk at ``start`` from the snapshot
+    state, CUDA events around the step alone (the restore copy in between
+    also evicts L2).  ``st`` is left as the chunk leaves it."""
     import torch
     total = 0.0
     for r in range(reps + 1):
@@ -349,7 +369,7 @@ def time_chunk(step, st, snapshot, kinds, progs, err, reps):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        step(st, kinds, 0, progs, err)
+        step(st, kinds, start, progs, err)
         b.record()
         torch.cuda.synchronize()
         if r:                           # the first run is the warm-up
@@ -359,14 +379,76 @@ def time_chunk(step, st, snapshot, kinds, progs, err, reps):
     return total / reps
 
 
+def host_counts_seconds(backend, instances: int) -> dict:
+    """``TorchBackend.counts`` and the runner's merge, part by part: the
+    int32 counts taken out of their warp tiles on the device and copied to
+    the host, widened to int64 there, and copied into a fresh result
+    array."""
+    import numpy as np
+    import torch
+    from repro_torch.fleet.torchexec import from_tiles
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    host = from_tiles(backend.st["counts"], backend.n).cpu()
+    t1 = time.perf_counter()
+    wide = host.numpy().astype(np.int64)
+    t2 = time.perf_counter()
+    result = np.zeros((instances, wide.shape[1]), dtype=np.int64)
+    result[:] = wide
+    t3 = time.perf_counter()
+    return {"d2h": t1 - t0, "widen": t2 - t1, "merge": t3 - t2,
+            "d2h_bytes": host.numel() * host.element_size()}
+
+
+def chunk_numbers(kb, kinds, start, snapshot):
+    """K1 and the plain version on one chunk from ``snapshot``: their ms,
+    the chunk's byte bound (sectors counted in the reference's layout)
+    and the sectors the port's layout touches -> dict.  ``kb.st`` is left
+    as the kernel leaves the chunk, and is held to the plain version's
+    result."""
+    import torch
+    from repro_torch.fleet.torchexec import _ARRAY_FIELDS, _SCALAR_FIELDS
+    from repro_torch.kernels.fleet_step import fleet_step, fleet_step_plain
+    n = kb.n
+    pst = {k: v.clone() for k, v in snapshot.items()}
+    plain_ms = time_chunk(fleet_step_plain, pst, snapshot, kinds, start,
+                          kb.progs, kb.err, PLAIN_REPS)
+    del pst
+    ms = time_chunk(fleet_step, kb.st, snapshot, kinds, start, kb.progs,
+                    kb.err, KERNEL_REPS)
+    # the chunk's reach, recorded by the plain version from the same
+    # state; its result is also held to the kernel's
+    rst = {k: v.clone() for k, v in snapshot.items()}
+    reach = {k: torch.zeros_like(rst[k], dtype=torch.bool)
+             for k in _ARRAY_FIELDS}
+    fleet_step_plain(rst, kinds, start, kb.progs, kb.err, reach=reach)
+    err = compare_states(kb.st, rst, f"chunk at op {start}")
+    del rst
+    reached, changed = reached_sectors(snapshot, kb.st, reach, True)
+    own = reached_sectors(snapshot, kb.st, reach, False)
+    del reach
+    torch.cuda.empty_cache()
+    # scalars, counts and slots read and written once, kinds read once:
+    # the same bytes an instance in either layout
+    per_instance = 2 * sum(kb.st[k].element_size() for k in _SCALAR_FIELDS) \
+        + 2 * kb.st["counts"].shape[1] * kb.st["counts"].element_size() \
+        + 2 * kb.st["slots"].shape[1] * kb.st["slots"].element_size() \
+        + kinds.shape[0]
+    bound_bytes = n * per_instance + 32 * (reached + changed)
+    return dict(ms=ms, plain_ms=plain_ms, err=err,
+                bound_ms=bound_bytes / HBM_BYTES_PER_S * 1e3,
+                bound_bytes=bound_bytes, per_instance=per_instance,
+                reached=reached, changed=changed, own_reached=own[0],
+                own_changed=own[1])
+
+
 def phase_main(device):
     import numpy as np
     import torch
     from repro_torch.fleet import (FleetConfig, build_fleet,
                                    check_instances, run_fleet)
-    from repro_torch.fleet.torchexec import (_ARRAY_FIELDS, _SCALAR_FIELDS,
-                                             TorchBackend)
-    from repro_torch.kernels.fleet_step import fleet_step, fleet_step_plain
+    from repro_torch.fleet.torchexec import TorchBackend
+    from repro_torch.kernels.fleet_step import fleet_step
 
     chunks = -(-MAIN_OPS // CHUNK)
     cfgs = {q: FleetConfig(queue=q, model="optane-clwb",
@@ -409,58 +491,60 @@ def phase_main(device):
         prof_run_s = profiled.run_s
         del profiled
 
-        kinds = torch.as_tensor(np.ascontiguousarray(res.kinds[:CHUNK]))
-        kinds = kinds.to(device)
+        # chunk 0 from the uniform start, chunk 1 from the state chunk 0
+        # leaves (the instances have diverged; the epoch advance runs)
         kb = TorchBackend(res.template, MAIN_INSTANCES, device,
                           use_kernel=True)
-        snapshot = {k: v.clone() for k, v in kb.st.items()}
-        ms = time_chunk(fleet_step, kb.st, snapshot, kinds, kb.progs,
-                        kb.err, KERNEL_REPS)
-        pst = {k: v.clone() for k, v in snapshot.items()}
-        plain_ms = time_chunk(fleet_step_plain, pst, snapshot, kinds,
-                              kb.progs, kb.err, PLAIN_REPS)
-        # the chunk's reach, recorded by the plain version from the same
-        # state; its result is also held to the kernel's
-        rst = {k: v.clone() for k, v in snapshot.items()}
-        reach = {k: torch.zeros_like(rst[k], dtype=torch.bool)
-                 for k in _ARRAY_FIELDS}
-        fleet_step_plain(rst, kinds, 0, kb.progs, kb.err, reach=reach)
-        worst = max(worst, compare_states(kb.st, rst, f"main {q} chunk 0"))
-        reached, changed = reached_sectors(snapshot, kb.st, reach)
-        per_instance = 2 * sum(kb.st[k].element_size()
-                               for k in _SCALAR_FIELDS) + \
-            2 * kb.st["counts"][0].nbytes + 2 * kb.st["slots"][0].nbytes + \
-            CHUNK
-        bound_bytes = MAIN_INSTANCES * per_instance + 32 * (reached + changed)
-        bound_ms = bound_bytes / HBM_BYTES_PER_S * 1e3
-        del pst, rst, reach, snapshot, kb
+        host = host_counts_seconds(kb, MAIN_INSTANCES)
+        by_chunk = []
+        for c in range(2):
+            kinds = torch.as_tensor(np.ascontiguousarray(
+                res.kinds[c * CHUNK:(c + 1) * CHUNK])).to(device)
+            snapshot = {k: v.clone() for k, v in kb.st.items()}
+            by_chunk.append(chunk_numbers(kb, kinds, c * CHUNK, snapshot))
+            del snapshot, kinds
+        del kb
         torch.cuda.empty_cache()
         _, err = lockstep(res.template, res.kinds, CHUNK, device, f"main {q}")
-        worst = max(worst, err)
+        worst = max([worst, err] + [c["err"] for c in by_chunk])
         torch.cuda.empty_cache()
         log(f"phase 3 {q}: plain backend on the card gives the identical "
             f"state after every chunk at {MAIN_INSTANCES} instances")
         state_gb = results[q]["peak"] / 1e9
+        slow = max(by_chunk, key=lambda c: c["ms"])
         log(f"phase 3 fleet/optane-clwb/off/{q}: "
             f"{MAIN_INSTANCES} instances x {MAIN_OPS} ops, "
             f"mops={res.ops_per_sec / 1e6:.3f} run_s={res.run_s:.4f} "
-            f"launches={launches} kernel_ms_per_chunk={ms:.3f} "
-            f"plain_ms_per_chunk={plain_ms:.1f} bound_ms={bound_ms:.4f} "
-            f"(bytes={bound_bytes}: {per_instance} B x instances, "
-            f"{reached} sectors reached, {changed} changed) "
-            f"roofline_share={bound_ms / ms:.4f} "
+            f"launches={launches} kernel_ms_per_chunk={slow['ms']:.4f} "
+            f"(the slower of chunks 0 and 1) "
             f"max_memory_allocated_gb={state_gb:.2f} "
             f"fences_per_op={agg.fences / res.total_ops:.3f} "
             f"post_flush_per_op={agg.post_flush_accesses / res.total_ops:.3f}"
             f" check_instances=8/8")
+        for c, num in enumerate(by_chunk):
+            log(f"phase 3 {q} chunk {c} (ops {c * CHUNK}-"
+                f"{(c + 1) * CHUNK - 1}): kernel_ms={num['ms']:.4f} "
+                f"plain_ms={num['plain_ms']:.1f} bound_ms="
+                f"{num['bound_ms']:.4f} (bytes={num['bound_bytes']}: "
+                f"{num['per_instance']} B x instances, {num['reached']} "
+                f"sectors reached, {num['changed']} changed, counted in the "
+                f"reference's [N, X] layout) roofline_share="
+                f"{num['bound_ms'] / num['ms']:.4f}; the port's warp "
+                f"tiles: {num['own_reached']} sectors reached, "
+                f"{num['own_changed']} changed (context, not the bound)")
         log(f"phase 3 {q} profiled run: run_s={prof_run_s:.4f}, by phase "
             f"(host s, synchronised): " +
             " ".join(f"{k}={v:.4f}" for k, v in phases.seconds.items()) +
             f" outside={prof_run_s - sum(phases.seconds.values()):.4f}")
+        log(f"phase 3 {q} host counts, each part alone (s): "
+            f"untile_and_d2h={host['d2h']:.4f} ({host['d2h_bytes']} B "
+            f"of int32) "
+            f"widen_to_int64={host['widen']:.4f} merge={host['merge']:.4f}")
         log(f"fleet/optane-clwb/off/{q}/cuda_wall_us_per_op,"
             f"{res.run_s * 1e6 / res.total_ops:.4f}")
-        summary[q] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                          launches=launches)
+        summary[q] = dict(ms=slow["ms"], plain_ms=slow["plain_ms"],
+                          bound_ms=slow["bound_ms"], launches=launches,
+                          chunks=by_chunk, run_s=res.run_s)
     return summary, total_launches, worst
 
 
@@ -1093,40 +1177,67 @@ def phase_scan(device):
     torch.cuda.empty_cache()
 
     B, S, din, ds = SSM_TIMED
-    args = scan_inputs(gen, B, S, din, ds, "float32", device)
-    ms = cuda_ms(lambda: ssm_scan(*args), KERNEL_REPS)
-    plain_ms = cuda_ms(lambda: ssm_scan_plain(*args), PLAIN_REPS)
-    # each input read once, y and h_final written once
-    nbytes = sum(t.numel() * t.element_size() for t in args) + \
-        (B * S * din + B * din * ds) * 4
-    exps = B * S * din * ds
-    # per (step, channel, state): dt*A, a*h, (dt*x)*B, +, *C, +
-    flops = 6 * exps + B * S * din
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     clock = sm_clock_hz()
+    exps = B * S * din * ds
     exp_ms = exps / (SFU_EXP_PER_CLOCK * sms * clock) * 1e3
+    # per (step, channel, state): dt*A, a*h, (dt*x)*B, +, *C, +
+    flops = 6 * exps + B * S * din
     flop_ms = flops / FP32_FLOPS * 1e3
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    bound_ms = max(bytes_ms, flop_ms)
-    bound_by = "bytes" if bound_ms == bytes_ms else "operations"
-    log(f"phase 8 ssm_scan timed B={B} S={S} din={din} ds={ds} fp32: "
-        f"kernel_ms={ms:.4f} plain_ms={plain_ms:.3f} bound_ms={bound_ms:.4f}"
-        f" ({bound_by}; bytes {nbytes} = {bytes_ms:.4f} ms at "
-        f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s; fp32 flops {flops} = "
-        f"{flop_ms:.4f} ms at {FP32_FLOPS / 1e12:.0f} TFLOP/s) "
-        f"roofline_share={bound_ms / ms:.4f}; exps {exps} through the SFUs "
-        f"alone = {exp_ms:.4f} ms at {SFU_EXP_PER_CLOCK} a clock x {sms} "
-        f"SMs x {clock / 1e9:.3f} GHz (not a floor: exps can also run on "
-        f"the FMA pipe); library: none")
-    del args
-    torch.cuda.empty_cache()
-    return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+    timed = {}
+    for dtype in SSM_TIMED_DTYPES:      # the main path's dtype first
+        args = scan_inputs(gen, B, S, din, ds, dtype, device)
+        ms = cuda_ms(lambda: ssm_scan(*args), KERNEL_REPS)
+        plain_ms = cuda_ms(lambda: ssm_scan_plain(*args), PLAIN_REPS)
+        # each input read once in the dtype it is handed, y and h_final
+        # written once in fp32
+        nbytes = sum(t.numel() * t.element_size() for t in args) + \
+            (B * S * din + B * din * ds) * 4
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        bound_ms = max(bytes_ms, flop_ms)
+        bound_by = "bytes" if bound_ms == bytes_ms else "operations"
+        log(f"phase 8 ssm_scan timed B={B} S={S} din={din} ds={ds} {dtype}"
+            f" inputs: kernel_ms={ms:.4f} plain_ms={plain_ms:.3f} "
+            f"bound_ms={bound_ms:.4f} ({bound_by}; bytes {nbytes} = "
+            f"{bytes_ms:.4f} ms at {HBM_BYTES_PER_S / 1e12:.2f} TB/s; fp32 "
+            f"flops {flops} = {flop_ms:.4f} ms at {FP32_FLOPS / 1e12:.0f} "
+            f"TFLOP/s) roofline_share={bound_ms / ms:.4f}; exps {exps} "
+            f"through the SFUs alone = {exp_ms:.4f} ms at "
+            f"{SFU_EXP_PER_CLOCK} a clock x {sms} SMs x {clock / 1e9:.3f} "
+            f"GHz (not a floor: exps can also run on the FMA pipe); "
+            f"library: none")
+        timed[dtype] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                            bound_by=bound_by)
+        del args
+        torch.cuda.empty_cache()
+    return dict(max_abs_err=worst, library_ms=None,
+                **timed[SSM_TIMED_DTYPES[0]])
 
 
 def mamba_config():
     from repro_torch.configs import get_config
     return get_config(MAMBA_ARCH)
+
+
+def fp32_feed_check(prefill, params, tokens, logits) -> float:
+    """The prefill again, with the scan fed fp32 copies of dt, B, C and x
+    as the block fed it before it handed over its bf16 tensors: raise
+    unless the logits are bit-identical -> that prefill's ms.  Its
+    launches fall outside the counted run."""
+    import torch
+    from repro_torch.models import mamba
+    bf16_feed = mamba.ssm_scan
+    mamba.ssm_scan = lambda dt, Bt, Ct, x, A: bf16_feed(
+        dt.float(), Bt.float(), Ct.float(), x.float(), A)
+    try:
+        again = prefill(params, {"tokens": tokens})
+        if not torch.equal(again, logits):
+            diff = float((again.float() - logits.float()).abs().max())
+            raise AssertionError(f"prefill: the fp32-copy feed changes the "
+                                 f"logits (max abs diff {diff:.3e})")
+        return cuda_ms(lambda: prefill(params, {"tokens": tokens}), 3)
+    finally:
+        mamba.ssm_scan = bf16_feed
 
 
 def phase_mamba_prefill(device):
@@ -1163,6 +1274,7 @@ def phase_mamba_prefill(device):
         busy_ms, by_kernel = device_profile(
             lambda: prefill(params, {"tokens": tokens}), 1)
         k3_ms = kernel_device_ms(by_kernel, "ssm_scan_fwd_kernel")
+        fp32_feed_ms = fp32_feed_check(prefill, params, tokens, logits)
     # every matmul weight once a token: the layers, and the lm head, which
     # the prefill step applies at all S positions before taking the last
     head = cfg.vocab * cfg.d_model
@@ -1185,6 +1297,9 @@ def phase_mamba_prefill(device):
         f"idle_share={1 - busy_ms / ms:.3f} k3_device_ms={k3_ms:.3f} "
         f"k3_share_of_busy={k3_ms / busy_ms:.3f} peak_device_gb="
         f"{peak_gb:.2f}")
+    log(f"phase 9 prefill fed fp32 copies of dt, B, C and x (the former "
+        f"block): logits bit-identical to the bf16 feed; prefill_ms="
+        f"{fp32_feed_ms:.3f} against {ms:.3f} for the bf16 feed")
     log(f"phase 9 prefill device time by kernel (profiler, ms): "
         f"{_top(by_kernel)}")
     return params, dict(launches=counts["ssm_scan"], ms=ms)

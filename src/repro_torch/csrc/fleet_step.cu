@@ -23,11 +23,26 @@
 // What bounds it: bytes.  It does no floating-point work.  Each instance's
 // scalars, counts and kinds column are read and written once per chunk,
 // plus the 32-byte sectors of the line planes, ring, stacks and limbo that
-// the chunk's ops reach.  What holds this design back: the state is
-// instance-major ([N, X]), so neighbouring threads touch addresses a whole
-// row apart and the 2-D state accesses are not coalesced; only the
-// scalars and the [C, N] kinds are.  Transposing the 2-D state to [X, N]
-// is the next step.
+// the chunk's ops reach.  What it meets instead is the L2: a 1M-instance
+// fleet's state is gigabytes, the sectors in use at once outgrow the 50 MB
+// L2, and a sector evicted between two ops of its instance is read again
+// from device memory.  Three choices serve that (each measured against
+// the others on the H100 by chip_variants.py):
+// - Warp tiles: every 2-D array is [T, X, 32], entry j of instance i at
+//   ((i / 32) X + j) 32 + i % 32 (Col below).  The lanes of a warp that
+//   reach the same column share its sectors (one for a uint8 plane, four
+//   for int32), where the reference's instance-major [N, X] gave every
+//   lane a sector of its own; and a warp's state is one contiguous run,
+//   where a plain instance-minor [X, N] spreads it a whole column (1 MB
+//   at 1M instances) apart per entry.
+// - A persistent grid of BLOCKS_PER_SM blocks an SM walks the instances,
+//   so fewer instances share the L2 at a time than the 9 blocks an SM
+//   its 56 registers a thread would allow.
+// - The counts stay in registers for the whole chunk: one counter per
+//   classify event and one count of committed ops per program, written
+//   once at the end as counts[e] += n_0 base_0[e] + n_1 base_1[e] + ev[e].
+//   int32 addition wraps the same in any order, so this is bit-identical
+//   to adding per op, and it saves 24 global accesses an op.
 //
 // Index safety.  JAX clamps out-of-range gathers and drops out-of-range
 // scatters; this kernel instead checks every computed index (line,
@@ -55,6 +70,8 @@
 #define EPOCH_ADV_OPS 64
 #define MAX_SLOT_GUARDS 4
 #define BLOCK 128
+#define BLOCKS_PER_SM 3
+#define TILE 32
 
 enum { EV_HIT = 7, EV_DRAM = 8, EV_COLD_DRAM = 9, EV_COLD_NVM = 10,
        EV_POSTFLUSH = 11 };
@@ -91,8 +108,24 @@ struct FsArgs {
   FsProg prog[2];
 };
 
+// One instance's column of a 2-D state array in warp tiles [T, X, 32]:
+// c[j] is entry j of instance i, at ((i / 32) X + j) 32 + i % 32.
 template <typename T>
-__device__ __forceinline__ void reverse(T* a, int lo, int hi) {
+struct Col {
+  T* p;                         // entry 0 of instance i
+  __device__ __forceinline__ T& operator[](int j) const {
+    return p[j * TILE];
+  }
+};
+
+template <typename T>
+__device__ __forceinline__ Col<T> col(void* base, int64_t i, int width) {
+  return Col<T>{static_cast<T*>(base) + (i / TILE) * width * TILE +
+                i % TILE};
+}
+
+template <typename T>
+__device__ __forceinline__ void reverse(const Col<T>& a, int lo, int hi) {
   for (--hi; lo < hi; ++lo, --hi) {
     T t = a[lo];
     a[lo] = a[hi];
@@ -101,11 +134,68 @@ __device__ __forceinline__ void reverse(T* a, int lo, int hi) {
 }
 
 template <typename T>
-__device__ __forceinline__ void rotate_left(T* a, int n, int k) {
+__device__ __forceinline__ void rotate_left(const Col<T>& a, int n, int k) {
   reverse(a, 0, k);
   reverse(a, k, n);
   reverse(a, 0, n);
 }
+
+// A persistent line's state: cached, finval and everfl, one plane each.
+struct Lines {
+  Col<uint8_t> cached, finval, everfl;
+
+  __device__ __forceinline__ Lines(const FsArgs& A, int64_t i)
+      : cached(col<uint8_t>(A.cached, i, A.nl)),
+        finval(col<uint8_t>(A.finval, i, A.nl)),
+        everfl(col<uint8_t>(A.everfl, i, A.nl)) {}
+  // OPC_CLASS_P's event, then the line is cached again
+  __device__ __forceinline__ int classify_recache(int ln) const {
+    const int ev = cached[ln] == 1   ? EV_HIT
+                   : finval[ln] == 1 ? EV_POSTFLUSH
+                   : everfl[ln] == 1 ? EV_COLD_NVM
+                                     : EV_COLD_DRAM;
+    recache(ln);
+    return ev;
+  }
+  __device__ __forceinline__ void recache(int ln) const {
+    cached[ln] = 1;
+    finval[ln] = 0;
+  }
+  __device__ __forceinline__ void invalidate(int ln) const {
+    cached[ln] = 0;
+    finval[ln] = 1;
+    everfl[ln] = 1;
+  }
+  __device__ __forceinline__ void mark_flushed(int ln) const {
+    everfl[ln] = 1;
+  }
+};
+
+// The classify events of a chunk, in registers: a switch keeps each
+// index static, so the counters never go to local memory.
+struct Events {
+  int hit = 0, dram = 0, cold_dram = 0, cold_nvm = 0, postflush = 0;
+
+  __device__ __forceinline__ void add(int e) {
+    switch (e) {
+      case EV_HIT: ++hit; break;
+      case EV_DRAM: ++dram; break;
+      case EV_COLD_DRAM: ++cold_dram; break;
+      case EV_COLD_NVM: ++cold_nvm; break;
+      default: ++postflush;
+    }
+  }
+  __device__ __forceinline__ int get(int e) const {
+    switch (e) {
+      case EV_HIT: return hit;
+      case EV_DRAM: return dram;
+      case EV_COLD_DRAM: return cold_dram;
+      case EV_COLD_NVM: return cold_nvm;
+      case EV_POSTFLUSH: return postflush;
+      default: return 0;
+    }
+  }
+};
 
 __device__ __forceinline__ int sym_value(int s, const int* env) {
   // env lives in registers: a switch keeps the index static
@@ -122,31 +212,21 @@ __device__ __forceinline__ int sym_value(int s, const int* env) {
   }
 }
 
-__global__ void __launch_bounds__(BLOCK) fleet_step_kernel(const FsArgs A) {
-  extern __shared__ int sm[];
-  const int* consts = static_cast<const int*>(A.consts);
-  for (int t = threadIdx.x; t < A.n_consts; t += blockDim.x) sm[t] = consts[t];
-  __syncthreads();
-
-  const int64_t i =
-      static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= A.n) return;
+// Instance i's whole chunk; sm holds the packed tables and base counts.
+__device__ __forceinline__ void step_instance(const FsArgs& A, const int* sm,
+                                              const int64_t i) {
   const int64_t n = A.n;
-
-  uint8_t* cached = static_cast<uint8_t*>(A.cached) + i * A.nl;
-  uint8_t* finval = static_cast<uint8_t*>(A.finval) + i * A.nl;
-  uint8_t* everfl = static_cast<uint8_t*>(A.everfl) + i * A.nl;
-  uint8_t* persisted = static_cast<uint8_t*>(A.persisted) + i * A.npers;
-  uint8_t* vtouched = static_cast<uint8_t*>(A.vtouched) + i * A.nvw;
-  int* ring_p = static_cast<int*>(A.ring_p) + i * A.cap;
-  int* ring_v = static_cast<int*>(A.ring_v) + i * A.cap;
-  int* free_p = static_cast<int*>(A.free_p) + i * A.fcap;
-  int* vfree = static_cast<int*>(A.vfree) + i * A.vfcap;
-  int* limbo_a = static_cast<int*>(A.limbo_a) + i * A.lcap;
-  int* limbo_e = static_cast<int*>(A.limbo_e) + i * A.lcap;
-  uint8_t* limbo_k = static_cast<uint8_t*>(A.limbo_k) + i * A.lcap;
-  int* counts = static_cast<int*>(A.counts) + i * N_EV;
-  int* slots = static_cast<int*>(A.slots) + i * A.nslots;
+  const Lines lines(A, i);
+  const Col<uint8_t> persisted = col<uint8_t>(A.persisted, i, A.npers);
+  const Col<uint8_t> vtouched = col<uint8_t>(A.vtouched, i, A.nvw);
+  const Col<int> ring_p = col<int>(A.ring_p, i, A.cap);
+  const Col<int> ring_v = col<int>(A.ring_v, i, A.cap);
+  const Col<int> free_p = col<int>(A.free_p, i, A.fcap);
+  const Col<int> vfree = col<int>(A.vfree, i, A.vfcap);
+  const Col<int> limbo_a = col<int>(A.limbo_a, i, A.lcap);
+  const Col<int> limbo_e = col<int>(A.limbo_e, i, A.lcap);
+  const Col<uint8_t> limbo_k = col<uint8_t>(A.limbo_k, i, A.lcap);
+  const Col<int> slots = col<int>(A.slots, i, A.nslots);
   const uint8_t* kinds = static_cast<const uint8_t*>(A.kinds);
 
   int head = static_cast<int*>(A.head)[i];
@@ -163,6 +243,8 @@ __global__ void __launch_bounds__(BLOCK) fleet_step_kernel(const FsArgs A) {
   bool active = static_cast<uint8_t*>(A.active)[i] != 0;
   int bail_at = static_cast<int*>(A.bail_at)[i];
   int err = 0;
+  Events events;
+  int committed0 = 0, committed1 = 0;   // ops committed per program
 
 #define FAIL(bit) do { err |= (bit); goto done; } while (0)
 
@@ -303,7 +385,7 @@ __global__ void __launch_bounds__(BLOCK) fleet_step_kernel(const FsArgs A) {
       switch (kind) {
         case OPC_CLASS_V: {
           if (a < 0 || a >= A.nvw) FAIL(ERR_VWORD);
-          ++counts[vtouched[a] == 1 ? EV_HIT : EV_DRAM];
+          events.add(vtouched[a] == 1 ? EV_HIT : EV_DRAM);
           vtouched[a] = 1;
           break;
         }
@@ -313,23 +395,10 @@ __global__ void __launch_bounds__(BLOCK) fleet_step_kernel(const FsArgs A) {
         case OPC_RECACHE: {
           if (a < 0 || a / LINE_WORDS >= A.nl) FAIL(ERR_LINE);
           const int ln = a / LINE_WORDS;
-          if (kind == OPC_CLASS_P) {
-            const int ev = cached[ln] == 1   ? EV_HIT
-                           : finval[ln] == 1 ? EV_POSTFLUSH
-                           : everfl[ln] == 1 ? EV_COLD_NVM
-                                             : EV_COLD_DRAM;
-            ++counts[ev];
-          }
-          if (kind == OPC_CLASS_P || kind == OPC_RECACHE) {
-            cached[ln] = 1;
-            finval[ln] = 0;
-          } else if (kind == OPC_ST_INVAL) {
-            cached[ln] = 0;
-            finval[ln] = 1;
-            everfl[ln] = 1;
-          } else {
-            everfl[ln] = 1;
-          }
+          if (kind == OPC_CLASS_P) events.add(lines.classify_recache(ln));
+          else if (kind == OPC_RECACHE) lines.recache(ln);
+          else if (kind == OPC_ST_INVAL) lines.invalidate(ln);
+          else lines.mark_flushed(ln);
           break;
         }
         case OPC_LIMBO: {
@@ -356,12 +425,28 @@ __global__ void __launch_bounds__(BLOCK) fleet_step_kernel(const FsArgs A) {
       }
     }
 
-    // ---- 8. count commit: the program's static base counts ----------------
-    const int* base = sm + P.base_off;
-    for (int e = 0; e < N_EV; ++e) counts[e] += base[e];
+    // ---- 8. the op is committed: its program's base counts, at the end ---
+    if (pi == 0) ++committed0;
+    else ++committed1;
   }
 done:
 #undef FAIL
+  {
+    // counts[e] += n_0 base_0[e] + n_1 base_1[e] + ev[e], in unsigned
+    // arithmetic: int32 addition wraps, in any order
+    const Col<int> counts = col<int>(A.counts, i, N_EV);
+    const int* base0 = sm + A.prog[0].base_off;
+    const int* base1 = sm + A.prog[A.n_progs > 1 ? 1 : 0].base_off;
+#pragma unroll
+    for (int e = 0; e < N_EV; ++e) {
+      const unsigned add =
+          static_cast<unsigned>(committed0) * static_cast<unsigned>(base0[e]) +
+          static_cast<unsigned>(committed1) * static_cast<unsigned>(base1[e]) +
+          static_cast<unsigned>(events.get(e));
+      if (add) counts[e] = static_cast<int>(static_cast<unsigned>(counts[e]) +
+                                            add);
+    }
+  }
   static_cast<int*>(A.head)[i] = head;
   static_cast<int*>(A.length)[i] = length;
   static_cast<int*>(A.dummy_p)[i] = dummy_p;
@@ -378,9 +463,27 @@ done:
   if (err) atomicOr(static_cast<int*>(A.err), err);
 }
 
+// A grid of BLOCKS_PER_SM blocks an SM walks the instances, a warp a tile
+// at a time.
+__global__ void __launch_bounds__(BLOCK) fleet_step_kernel(const FsArgs A) {
+  extern __shared__ int sm[];
+  const int* consts = static_cast<const int*>(A.consts);
+  for (int t = threadIdx.x; t < A.n_consts; t += blockDim.x) sm[t] = consts[t];
+  __syncthreads();
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * BLOCK;
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * BLOCK + threadIdx.x;
+       i < A.n; i += stride)
+    step_instance(A, sm, i);
+}
+
 extern "C" int fleet_step_launch(const FsArgs* args) {
   if (args->n <= 0 || args->n_ops <= 0) return 0;
-  const int blocks = (args->n + BLOCK - 1) / BLOCK;
+  int device = 0, sms = 0;
+  cudaError_t rc = cudaGetDevice(&device);
+  if (rc == cudaSuccess)
+    rc = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  const int blocks = min((args->n + BLOCK - 1) / BLOCK, BLOCKS_PER_SM * sms);
   const size_t smem = static_cast<size_t>(args->n_consts) * sizeof(int);
   fleet_step_kernel<<<blocks, BLOCK, smem,
                       static_cast<cudaStream_t>(args->stream)>>>(*args);

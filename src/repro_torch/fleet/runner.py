@@ -206,7 +206,7 @@ def _replay(template: Template, kinds: np.ndarray, i: int, upto: int):
 
 def _final_counts(h) -> np.ndarray:
     h.nvram._drain()
-    return h.nvram._counts[0].astype(np.int64).copy()
+    return h.nvram._counts[0].astype(np.int64)
 
 
 class _NullScope:
@@ -277,7 +277,9 @@ def _run_batch(template: Template, cfg: FleetConfig, kinds: np.ndarray,
         hb.advance(chunks=1, ops=n * (end - start), bails=len(ids),
                    rejoins=rejoins,
                    residents=len(ids) - rejoins)
-    counts = np.asarray(backend.counts(), dtype=np.int64).copy()
+    prof.push("counts")
+    counts = np.asarray(backend.counts(), dtype=np.int64)
+    prof.pop()
     for i, c in resident_counts.items():
         counts[i] = c
     return counts, bails, residents
@@ -291,10 +293,11 @@ def run_fleet(cfg: FleetConfig, fleet: Optional[Fleet] = None,
 
     ``profile`` attaches an observation-only phase profiler (phases:
     ``lowering``, ``chunk-step``, ``poll``, ``bail-replay``,
-    ``resident-replay``; the cuda backend reports its chunks as
-    ``kernel-launch``); ``heartbeat`` a progress reporter with
-    ``configure``/``advance``/``emit``.  Both are duck-typed, and neither
-    changes counts."""
+    ``resident-replay``, ``counts`` (the backend's counts brought to the
+    host as int64), ``merge`` (a batch's counts copied into the result);
+    the cuda backend reports its chunks as ``kernel-launch``);
+    ``heartbeat`` a progress reporter with ``configure``/``advance``/
+    ``emit``.  Both are duck-typed, and neither changes counts."""
     prof = profile if profile is not None else _NULL
     hb = heartbeat if heartbeat is not None else _NULL
     device = _resolve_backend(cfg)
@@ -323,7 +326,9 @@ def run_fleet(cfg: FleetConfig, fleet: Optional[Fleet] = None,
         e = min(s + bsz, cfg.instances)
         c, b, r = _run_batch(fleet.template, cfg, fleet.kinds[:, s:e],
                              cfg.backend, device, s, prof=prof, hb=hb)
+        prof.push("merge")
         counts[s:e] = c
+        prof.pop()
         bails += b
         residents += r
     run_s = time.perf_counter() - t1

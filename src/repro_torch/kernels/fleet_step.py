@@ -43,7 +43,8 @@ from ..fleet.lowering import (KIND_DEQ, KIND_ENQ, N_OPC, OPC_CLASS_P,
                               OPC_ST_EVERFL, OPC_ST_INVAL, SYM,
                               encode_program)
 from ..fleet.stepper import EPOCH_ADV_OPS
-from ..fleet.torchexec import _ARRAY_FIELDS, _SCALAR_FIELDS, _dtype
+from ..fleet.torchexec import (_ARRAY_FIELDS, _SCALAR_FIELDS, TILE,
+                               _dtype, n_tiles)
 from .build import check, load_library
 
 N_SYM = max(SYM.values()) + 1
@@ -154,24 +155,29 @@ def _flag(err: torch.Tensor, bad: torch.Tensor, bit: int) -> None:
     err.bitwise_or_(bad.any().to(torch.int32) * bit)
 
 
+# The plain version works on views: a 2-D field as ``[X, T, 32]`` (its
+# warp tiles with the column axis first), a per-instance value as
+# ``[T, 32]``; "instance i" below is the pair (tile, lane).
+
 def _col(a: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    return a.gather(1, idx[:, None]).squeeze(1)
+    """a[idx[i], i] for every instance i."""
+    return a.gather(0, idx[None]).squeeze(0)
 
 
 def _put(a: torch.Tensor, idx: torch.Tensor, m: torch.Tensor, val) -> None:
-    """a[i, idx[i]] = val[i] where m[i]; other rows keep their value."""
+    """a[idx[i], i] = val[i] where m[i]; other instances keep theirs."""
     old = _col(a, idx)
     new = torch.where(m, torch.as_tensor(val, dtype=a.dtype,
                                          device=a.device), old)
-    a.scatter_(1, idx[:, None], new[:, None])
+    a.scatter_(0, idx[None], new[None])
 
 
 def _touch(reach, key: str, idx: torch.Tensor, m: torch.Tensor) -> None:
-    """Mark ``st[key][i, idx[i]]`` reached where ``m[i]`` (``reach`` is
+    """Mark ``st[key][idx[i], i]`` reached where ``m[i]`` (``reach`` is
     None unless the caller records what a chunk reads and writes)."""
     if reach is not None:
-        ii = m.nonzero(as_tuple=True)[0]
-        reach[key][ii, idx[ii].long()] = True
+        ii = m.nonzero(as_tuple=True)
+        reach[key][(idx[ii].long(),) + ii] = True
 
 
 def _index(err, m, idx, width: int, bit: int) -> torch.Tensor:
@@ -191,18 +197,19 @@ def _advance_plain(dims, st, adv, err, reach) -> None:
     st["epoch"] = torch.where(adv, min_e + 1, min_e)
     nl = st["nlimbo"]
     _flag(err, adv & ((nl < 0) | (nl > lcap)), ERR_LIMBO)
-    j = torch.arange(lcap, dtype=torch.int32, device=nl.device)[None, :]
-    inl = j < nl[:, None]
-    fr = inl & (st["limbo_e"] + 2 <= min_e[:, None]) & adv[:, None]
-    nfr = fr.sum(dim=1, dtype=torch.int32)
+    j = torch.arange(lcap, dtype=torch.int32,
+                     device=nl.device)[:, None, None]
+    inl = j < nl[None]
+    fr = inl & (st["limbo_e"] + 2 <= min_e[None]) & adv[None]
+    nfr = fr.sum(dim=0, dtype=torch.int32)
     # the kernel compacts by rotation, which needs the freed entries to be
     # a prefix (limbo epochs never decrease along the ring)
-    _flag(err, adv & (fr != (j < nfr[:, None])).any(dim=1), ERR_LIMBO)
+    _flag(err, adv & (fr != (j < nfr[None])).any(dim=0), ERR_LIMBO)
     if reach is not None:
         # the epochs are scanned; freed entries are read; a partial free
         # rotates the whole live ring
-        live = inl & adv[:, None]
-        rot = live & ((nfr > 0) & (nfr < nl))[:, None]
+        live = inl & adv[None]
+        rot = live & ((nfr > 0) & (nfr < nl))[None]
         reach["limbo_e"] |= live
         for key in ("limbo_a", "limbo_k"):
             reach[key] |= fr | rot
@@ -210,19 +217,20 @@ def _advance_plain(dims, st, adv, err, reach) -> None:
     for sel, key, nkey, slen in ((fr & is_p, "free_p", "nfree", dims.fcap),
                                  (fr & ~is_p, "vfree", "nvfree",
                                   dims.vfcap)):
-        cnt = torch.cumsum(sel.to(torch.int32), dim=1, dtype=torch.int32)
-        dest = st[nkey][:, None] + cnt - 1
+        cnt = torch.cumsum(sel.to(torch.int32), dim=0, dtype=torch.int32)
+        dest = st[nkey][None] + cnt - 1
         bad = sel & ((dest < 0) | (dest >= slen))
         _flag(err, bad, ERR_FREE)
-        ii, jj = (sel & ~bad).nonzero(as_tuple=True)
-        st[key][ii, dest[ii, jj].long()] = st["limbo_a"][ii, jj]
+        nz = (sel & ~bad).nonzero(as_tuple=True)        # (entry, instance)
+        at = (dest[nz].long(),) + nz[1:]
+        st[key][at] = st["limbo_a"][nz]
         if reach is not None:
-            reach[key][ii, dest[ii, jj].long()] = True
-        st[nkey] = st[nkey] + cnt[:, -1]
+            reach[key][at] = True
+        st[nkey] = st[nkey] + cnt[-1]
     keep = inl & ~fr
-    order = torch.argsort((~keep).to(torch.int32), dim=1, stable=True)
+    order = torch.argsort((~keep).to(torch.int32), dim=0, stable=True)
     for key in ("limbo_a", "limbo_e", "limbo_k"):
-        st[key].copy_(st[key].gather(1, order))
+        st[key].copy_(st[key].gather(0, order))
     st["nlimbo"] = nl - nfr
 
 
@@ -233,7 +241,6 @@ def _apply_plain(spec: ProgSpec, dims, st, sel, oi: int, err,
     cap = dims.cap
     m0 = st["active"] & sel
     head, length = st["head"], st["length"]
-    n = head.shape[0]
     # ---- tail record ----------------------------------------------------
     hl = head + (length - 1).clamp(min=0)
     _flag(err, m0 & (hl < 0), ERR_RING)
@@ -248,11 +255,11 @@ def _apply_plain(spec: ProgSpec, dims, st, sel, oi: int, err,
     if spec.code == KIND_DEQ:
         bail |= length == 0
     for s in spec.slot_guards:
-        bail |= st["slots"][:, s] == NULL
+        bail |= st["slots"][s] == NULL
     pers = st["persisted"]
     if spec.tail_guard:
         ln = _index(err, m0, tail_p.div(LINE_WORDS, rounding_mode="floor"),
-                    pers.shape[1], ERR_PERSISTED)
+                    pers.shape[0], ERR_PERSISTED)
         bail |= _col(pers, ln.long()) == 0
         _touch(reach, "persisted", ln, m0)
     if spec.allocs_p:
@@ -283,7 +290,7 @@ def _apply_plain(spec: ProgSpec, dims, st, sel, oi: int, err,
         _touch(reach, "ring_p", hpos, m)
         _touch(reach, "ring_v", hpos, m)
     if spec.prev_slot >= 0:
-        env[E_PREV] = st["slots"][:, spec.prev_slot].clone()
+        env[E_PREV] = st["slots"][spec.prev_slot].clone()
     for on, stack, nkey, ckey, base, width in (
             (spec.allocs_p, "free_p", "nfree", "cursor", dims.area_base,
              LINE_WORDS),
@@ -293,14 +300,14 @@ def _apply_plain(spec: ProgSpec, dims, st, sel, oi: int, err,
             continue
         nf, cur = st[nkey], st[ckey]
         use = nf > 0
-        top = _index(err, m & use, nf - 1, st[stack].shape[1], ERR_FREE)
+        top = _index(err, m & use, nf - 1, st[stack].shape[0], ERR_FREE)
         _touch(reach, stack, top, m & use)
         env[E_NEW_P if stack == "free_p" else E_NEW_V] = torch.where(
             use, _col(st[stack], top.long()), base + cur * width)
         st[nkey] = torch.where(m & use, nf - 1, nf)
         st[ckey] = torch.where(m & ~use, cur + 1, cur)
     # ---- opcode rows ----------------------------------------------------
-    zeros = torch.zeros(n, dtype=torch.int32, device=head.device)
+    zeros = torch.zeros_like(head)
     epoch = st["epoch"]
     rows = spec.table.tolist()
 
@@ -316,14 +323,14 @@ def _apply_plain(spec: ProgSpec, dims, st, sel, oi: int, err,
             w = _index(err, m, a, dims.nvw, ERR_VWORD).long()
             vt = _col(st["vtouched"], w)
             ev = torch.where(vt == 1, EV_HIT, EV_DRAM)
-            st["counts"].scatter_add_(1, ev[:, None].long(),
-                                      m[:, None].to(torch.int32))
+            st["counts"].scatter_add_(0, ev[None].long(),
+                                      m[None].to(torch.int32))
             _put(st["vtouched"], w, m, 1)
             _touch(reach, "vtouched", w, m)
             return
         if kind in (OPC_PDISCARD, OPC_PADD):
             ln = _index(err, m, a.div(LINE_WORDS, rounding_mode="floor"),
-                        pers.shape[1], ERR_PERSISTED).long()
+                        pers.shape[0], ERR_PERSISTED).long()
             _put(pers, ln, m, 1 if kind == OPC_PADD else 0)
             _touch(reach, "persisted", ln, m)
             return
@@ -337,10 +344,10 @@ def _apply_plain(spec: ProgSpec, dims, st, sel, oi: int, err,
             st["nlimbo"] = torch.where(m, st["nlimbo"] + 1, st["nlimbo"])
             return
         if kind == OPC_SLOT:
-            if not 0 <= imm < st["slots"].shape[1]:
+            if not 0 <= imm < st["slots"].shape[0]:
                 _flag(err, m, ERR_SLOT)
                 return
-            st["slots"][:, imm] = torch.where(m, a, st["slots"][:, imm])
+            st["slots"][imm] = torch.where(m, a, st["slots"][imm])
             return
         ln = _index(err, m, a.div(LINE_WORDS, rounding_mode="floor"),
                     dims.nl, ERR_LINE).long()
@@ -351,8 +358,8 @@ def _apply_plain(spec: ProgSpec, dims, st, sel, oi: int, err,
                 torch.where(_col(fi, ln) == 1, EV_POSTFLUSH,
                             torch.where(_col(st["everfl"], ln) == 1,
                                         EV_COLD_NVM, EV_COLD_DRAM)))
-            st["counts"].scatter_add_(1, ev[:, None].long(),
-                                      m[:, None].to(torch.int32))
+            st["counts"].scatter_add_(0, ev[None].long(),
+                                      m[None].to(torch.int32))
             # everfl is read only for a line neither cached nor flushed
             _touch(reach, "everfl", ln,
                    m & ((ev == EV_COLD_NVM) | (ev == EV_COLD_DRAM)))
@@ -395,7 +402,7 @@ def _apply_plain(spec: ProgSpec, dims, st, sel, oi: int, err,
     mi = m.to(torch.int32)
     for e, v in enumerate(spec.base_counts.tolist()):
         if v:
-            st["counts"][:, e] += mi * v
+            st["counts"][e] += mi * v
 
 
 def fleet_step_plain(st: dict, kinds: torch.Tensor, start: int,
@@ -404,14 +411,27 @@ def fleet_step_plain(st: dict, kinds: torch.Tensor, start: int,
     """Advance ``st`` in place through ``kinds.shape[0]`` plan steps.
     ``kinds[c, i]`` is instance i's op at global index ``start + c``.
 
-    ``reach``, when given, maps each of ``_ARRAY_FIELDS`` to a bool tensor
-    of that field's shape, and the call sets every position the chunk's
-    ops read or write there: the state a byte bound must count."""
-    for c in range(kinds.shape[0]):
-        k = kinds[c]
+    Every 2-D state tensor is in warp tiles ``[T, X, 32]`` (see
+    :mod:`repro_torch.fleet.torchexec`).  ``reach``, when given, maps each
+    of ``_ARRAY_FIELDS`` to a bool tensor of that field's shape, and the
+    call sets every position the chunk's ops read or write there: the
+    state a byte bound must count."""
+    n = kinds.shape[1]
+    pad = n_tiles(n) * TILE - n
+    w = {k: st[k].permute(1, 0, 2) for k in _ARRAY_FIELDS +
+         ("counts", "slots")}
+    for k in _SCALAR_FIELDS:        # padding instances: inactive, zero
+        w[k] = torch.cat([st[k], st[k].new_zeros(pad)]).view(-1, TILE)
+    wk = torch.cat([kinds, kinds.new_full((kinds.shape[0], pad), 255)],
+                   dim=1).view(kinds.shape[0], -1, TILE)
+    wr = None if reach is None else {k: v.permute(1, 0, 2)
+                                     for k, v in reach.items()}
+    for c in range(wk.shape[0]):
         for spec in progs.specs:
-            _apply_plain(spec, progs.dims, st, k == spec.code, start + c,
-                         err, reach)
+            _apply_plain(spec, progs.dims, w, wk[c] == spec.code, start + c,
+                         err, wr)
+    for k in _SCALAR_FIELDS:
+        st[k].copy_(w[k].reshape(-1)[:n])
 
 
 # --------------------------------------------------------------------------
@@ -460,7 +480,7 @@ def _check_state(st: dict, kinds: torch.Tensor, dims, err) -> None:
     for key in STATE_KEYS:
         t = st[key]
         want = _dtype(key)
-        shape = (n, widths[key]) if key in widths else (n,)
+        shape = (n_tiles(n), widths[key], TILE) if key in widths else (n,)
         if t.device != dev or t.dtype != want or tuple(t.shape) != shape \
                 or not t.is_contiguous():
             raise ValueError(

@@ -15,8 +15,9 @@ implementations of one function live here:
   tests hold it to the JAX oracle, and ``chip_smoke.py`` holds the kernel
   to it on the card.
 * the CUDA kernel in ``src/repro_torch/csrc/ssm_scan.cu`` (one block per
-  batch row and 32 channels, the time loop inside the block), built at
-  first use (:mod:`.build`).
+  batch row and 16 channels, eight lanes a channel, the time loop inside
+  the block, inputs staged through a ``cp.async`` ring), built at first
+  use (:mod:`.build`).
 
 :func:`ssm_scan` is the wrapper: the plain version for CPU tensors, the
 kernel for CUDA tensors, no other path.  The kernel takes fp32 or bf16
@@ -88,7 +89,16 @@ def _check(dt, Bt, Ct, x, A):
 
 @functools.lru_cache(maxsize=None)
 def _kernel():
-    return bind(load_library("ssm_scan"), "ssm_scan_launch", 7, 5)
+    return bind(load_library("ssm_scan"), "ssm_scan_launch", 7, 6)
+
+
+def _copies_in_16_bytes(dt, Bt, Ct, x) -> bool:
+    """Whether the kernel may stage the inputs with 16-byte ``cp.async``
+    copies: a full state width, rows of whole 16-byte pieces and aligned
+    pointers."""
+    return Bt.shape[-1] == MAX_STATE and \
+        x.shape[-1] * x.element_size() % 16 == 0 and \
+        all(t.data_ptr() % 16 == 0 for t in (dt, Bt, Ct, x))
 
 
 def _launch(dt, Bt, Ct, x, A) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -100,7 +110,8 @@ def _launch(dt, Bt, Ct, x, A) -> Tuple[torch.Tensor, torch.Tensor]:
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = _kernel()(dt.data_ptr(), x.data_ptr(), Bt.data_ptr(),
                    Ct.data_ptr(), A.data_ptr(), y.data_ptr(), h.data_ptr(),
-                   stream, DTYPES[x.dtype], Bsz, S, din, ds)
+                   stream, DTYPES[x.dtype], Bsz, S, din, ds,
+                   int(_copies_in_16_bytes(dt, Bt, Ct, x)))
     check(rc, "ssm_scan")
     return y, h
 

@@ -1,12 +1,15 @@
 """Mamba-1 block (selective state-space model).
 
-The PyTorch counterpart of ``repro.models.mamba``, with its casts kept:
-in_proj -> (x, z); a causal depthwise conv (a sum of shifted products in
-the compute dtype) and SiLU on x; softplus(dt) in the compute dtype, cast
-to fp32 with B and C; ``A = -exp(A_log)`` in fp32; the selective scan in
-fp32; ``y + D x`` and ``y * silu(z)`` in fp32, cast back to x's dtype
-before out_proj.  ``A_log`` and ``D`` are fp32 whatever ``param_dtype``
-is.
+The PyTorch counterpart of ``repro.models.mamba``, with its arithmetic
+kept: in_proj -> (x, z); a causal depthwise conv (a sum of shifted
+products in the compute dtype) and SiLU on x; softplus(dt) in the compute
+dtype; ``A = -exp(A_log)`` in fp32; the selective scan in fp32; ``y + D x``
+and ``y * silu(z)`` in fp32, cast back to x's dtype before out_proj.
+``A_log`` and ``D`` are fp32 whatever ``param_dtype`` is.  The JAX block
+casts dt, B, C and x to fp32 before the scan; here the scan takes them in
+the compute dtype and widens each value as it reads it (exact, as the
+cast is), so a bf16 model hands it bf16 tensors and makes no fp32 copies;
+``D x`` is fp32 by type promotion.
 
 Two scan paths, as in the JAX package: the full-sequence block (prefill)
 runs the selective scan (``use_kernels`` True: the :func:`ssm_scan`
@@ -51,14 +54,14 @@ def init_mamba(cfg: ModelConfig, gen: torch.Generator, device=None) -> dict:
 
 
 def _ssm_inputs(cfg: ModelConfig, params, xc: torch.Tensor):
-    """xc (B, S, din) post-conv activations -> (dt, B_t, C_t), fp32 and
-    contiguous."""
+    """xc (B, S, din) post-conv activations -> (dt, B_t, C_t), contiguous
+    and in the compute dtype (the scan and the decode step widen them to
+    fp32 as they read them)."""
     ds, dtr = cfg.ssm_state, cfg.dt_rank_
     proj = xc @ params["x_proj"]                    # (B, S, dtr + 2 ds)
     dt_in, Bt, Ct = torch.split(proj, [dtr, ds, ds], dim=-1)
-    dt = F.softplus(dt_in @ params["dt_proj"] + params["dt_bias"]).float()
-    return (dt.contiguous(), Bt.float().contiguous(),
-            Ct.float().contiguous())
+    dt = F.softplus(dt_in @ params["dt_proj"] + params["dt_bias"])
+    return dt, Bt.contiguous(), Ct.contiguous()
 
 
 def _causal_conv(cfg: ModelConfig, params, x: torch.Tensor) -> torch.Tensor:
@@ -76,10 +79,9 @@ def mamba_block(cfg: ModelConfig, params, x: torch.Tensor,
     xi = F.silu(_causal_conv(cfg, params, xi))
     dt, Bt, Ct = _ssm_inputs(cfg, params, xi)
     A = -torch.exp(params["A_log"])
-    xf = xi.float()
     scan = ssm_scan if use_kernels else ssm_scan_plain
-    y, _ = scan(dt, Bt, Ct, xf, A)
-    y = y + params["D"] * xf
+    y, _ = scan(dt, Bt, Ct, xi, A)
+    y = y + params["D"] * xi                        # fp32 by promotion
     y = (y * F.silu(z.float())).to(x.dtype)
     return y @ params["out_proj"]
 
