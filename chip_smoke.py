@@ -6,8 +6,9 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc/``, holds
 each against its plain PyTorch version on the card, drives the port's main
 paths at full size (the fleet executor, ``repro_torch.fleet.run_fleet``;
 yi-6b serving through ``ServeEngine`` and its prefill step; falcon-mamba-7b
-prefill and serving), and checks their results against independent
-references.  It
+prefill and serving; deepseek-moe-16b serving and prefill; training at
+full width with its depth cut), and checks their results against
+independent references.  It
 imports nothing of JAX or of the JAX package.  Every failure raises and
 exits non-zero; a host without CUDA exits 2 and prints no result.
 
@@ -37,12 +38,19 @@ Phases:
    lengths 1-11 and B=32); the HMMA instructions of the bf16 split
    kernel in the built library (none fails the phase); then the kernel,
    the plain version and one PyTorch SDPA call timed at B=128, S=32768
-   beside the byte bound, with TFLOP/s and kernel_ms / sdpa_ms;
+   beside the byte bound, with TFLOP/s and kernel_ms / sdpa_ms; then
+   nemotron-4-340b's attention (96 heads, 8 kv heads, head_dim 192):
+   B=32, S=4096 with random lengths and lengths 1, 15, 17, 63 and 65, in
+   fp32 and bf16, timed at B=32, S=4096 likewise;
 5. K2, flash attention, vs its plain version: the JAX test shapes,
    non-causal, ragged S, S = 1, 15, 17 and 65 causal and not, and yi-6b's
    prefill shape (B=1, S=4096, bf16); the HMMA instructions of the bf16
    kernel; then the three timed at that shape beside the FLOP bound,
-   with TFLOP/s and kernel_ms / sdpa_ms;
+   with TFLOP/s and kernel_ms / sdpa_ms; nemotron-4-340b's attention at
+   B=1, S=4096 causal and S = 1, 15, 17, 65, fp32 and bf16, timed at
+   S=4096 likewise; and each of K2, K4 and K3 handed a CUDA input that
+   requires grad raises (they have no backward) and launches under
+   no_grad;
 6. serving main path: ``ServeEngine`` on yi-6b at full width (bf16, 32
    layers, random weights from seed 0, max_len 2048) through K4, twice:
    the JAX serve command's traffic (12 requests, batch 4, 4-token prompts,
@@ -79,11 +87,36 @@ Phases:
    time; then
    ``python -m repro_torch.launch.serve --arch falcon-mamba-7b``;
 11. falcon-mamba-7b in fp32 from the same seed: kernels against plain
-   versions on prefill last-token logits, and decode == forward at S=16.
+   versions on prefill last-token logits, and decode == forward at S=16;
+12. serving main path of the MoE family: ``ServeEngine`` on
+   deepseek-moe-16b at full width and depth (bf16, 28 layers, random
+   weights from seed 0, max_len 2048) with the JAX serve command's
+   traffic, K4 launched 28 times a step; ms per ``serve_step`` at the
+   last position beside its byte bound, busy time and idle share; then
+   ``python -m repro_torch.launch.serve --arch deepseek-moe-16b``;
+13. its prefill (B=1, S=4096, bf16) through K2, 28 launches, beside the
+   FLOP bound of the weights a token multiplies (router, top-6 routed and
+   2 shared experts, attention, the lm head); then the model cut to 4
+   layers in fp32, drop-free, kernels against the chunked paths on
+   prefill last-token logits and 16 ``serve_step``s, and decode ==
+   forward;
+14. training at full width, depth cut: the chunked attention's (S=4096)
+   and the chunked scan's (din 8192, S=512) fp32 gradients against
+   autograd through the plain versions; ``make_train_step`` on
+   deepseek-moe-16b cut to 4 layers (batch 4 x 4096, accum 2, 3 steps)
+   and on falcon-mamba-7b cut to 2 layers (B=1, S=4096), each gated on
+   its loss against the kernels' loss, its size, a finite gradient norm
+   and every parameter updated, with ms a step, tokens/s, the FLOP
+   bound, busy/idle share and peak memory; the ``train()`` driver on
+   deepseek-moe-16b cut to 2 layers checkpointing at full width (free
+   disk asserted), restoring bit for bit and resuming; then ``python -m
+   repro_torch.launch.train --arch deepseek-moe-16b`` with
+   ``--crash-at 6`` and again without.
 
 The line before the last holds one JSON object with each kernel's
 numbers; the last line is the device summary.
 """
+import contextlib
 import json
 import subprocess
 import sys
@@ -131,11 +164,23 @@ DECODE_CASES = [    # (B, S, H, KV, hd, dtype, lengths or None = random)
     # the smoke serve's shape: 32 splits of 64 keys, all but one empty
     (4, 2048, 32, 4, 128, "bfloat16", [1, 4, 8, 11]),
     (32, 2048, 32, 4, 128, "bfloat16", None),     # the chat serve's shape
+    # deepseek-moe-16b's serve (16 heads, one a kv head): the smoke's
+    # lengths, then random lengths
+    (4, 2048, 16, 16, 128, "bfloat16", [1, 4, 8, 11]),
+    (4, 2048, 16, 16, 128, "bfloat16", None),
 ] + [  # lengths at and around a warp's 16 keys and a step's 64; G = 1, 3, 16
     (4, 100, H, 2, 128, dtype, [1, 15, 17, 63])
     for H in (2, 6, 32) for dtype in ("float32", "bfloat16")
 ]
+# nemotron-4-340b's attention (96 heads, 8 kv heads, head_dim 192): its
+# decode at B=32, S=4096 with random lengths, and lengths at the tile edges
+ATTN_192 = (96, 8, 192)                           # H, KV, hd
+DECODE_CASES += [(32, 4096, *ATTN_192, dtype, None)
+                 for dtype in ("float32", "bfloat16")] + [
+    (5, 100, *ATTN_192, dtype, [1, 15, 17, 63, 65])
+    for dtype in ("float32", "bfloat16")]
 DECODE_TIMED = (128, 32768, 32, 4, 128)           # B, S, H, KV, hd; bf16
+DECODE_TIMED_192 = (32, 4096, *ATTN_192)
 FLASH_CASES = [     # (B, S, H, KV, hd, dtype, causal)
     (2, 256, 4, 4, 64, "float32", True), (2, 256, 4, 4, 64, "bfloat16",
                                           True),
@@ -154,11 +199,18 @@ FLASH_CASES = [     # (B, S, H, KV, hd, dtype, causal)
     (2, 100, 4, 1, 16, "float32", True), (2, 100, 4, 1, 16, "bfloat16",
                                           True),  # reduced yi-6b
     (1, 4096, 32, 4, 128, "bfloat16", True),      # yi-6b prefill
+    (1, 4096, 16, 16, 128, "bfloat16", True),     # deepseek-moe-16b prefill
 ] + [  # S at and around the 16-row and 64-key tiles of the mma kernel
     (2, S, 8, 2, 128, dtype, causal) for S in (1, 15, 17, 65)
     for causal in (True, False) for dtype in ("float32", "bfloat16")
 ]
+# nemotron-4-340b's prefill attention at B=1, S=4096, and S around the tiles
+FLASH_CASES += [(1, 4096, *ATTN_192, dtype, True)
+                for dtype in ("float32", "bfloat16")] + [
+    (2, S, *ATTN_192, dtype, True) for S in (1, 15, 17, 65)
+    for dtype in ("float32", "bfloat16")]
 FLASH_TIMED = (1, 4096, 32, 4, 128)               # B, S, H, KV, hd; bf16
+FLASH_TIMED_192 = (1, 4096, *ATTN_192)
 SERVE_ARCH, SERVE_MAX_LEN, SERVE_REQUESTS = "yi-6b", 2048, 12
 SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 4, 4, 8   # the JAX serve driver's
 # The chat serve: prompt lengths log-normal around the median prompt of
@@ -192,6 +244,26 @@ SSM_TOL = 1e-4
 # kernel may also take exps as polynomials on the FMA pipe
 SFU_EXP_PER_CLOCK = 16
 MAMBA_ARCH, MAMBA_CHECK_LEN = "falcon-mamba-7b", 256
+MOE_ARCH = "deepseek-moe-16b"
+MOE_CHECK_LAYERS = 4        # the fp32 model check: dense_first + 3 MoE
+# one MoE layer in fp32 (B, S): the prefill's and a decode step's tokens
+MOE_LAYER_SHAPES = ((1, 4096), (4, 1))
+# as tests/test_torch_moe.py: relative, and of the largest output absolute
+MOE_TOL = 1e-5
+# training at full width, depth cut (memory: see phase_train_moe)
+TRAIN_MOE_LAYERS, TRAIN_BATCH, TRAIN_LEN, TRAIN_ACCUM = 4, 4, 4096, 2
+TRAIN_STEPS = 3
+TRAIN_MAMBA_LAYERS = 2
+TRAIN_LOSS_TOL = 2e-2       # bf16: the train step's loss vs the kernels'
+GRAD_TOL = 1e-4             # fp32 chunked vs plain gradients
+GRAD_SCAN_LEN = 512         # the plain scan's autograd runs step by step
+# the fp32 train-step gradient check: (arch, n_layers, batch, S), accum 2;
+# S=4096 takes causal_attention_chunked's chunked branch
+TRAIN_CHECK = (("deepseek-moe-16b", 2, 2, 4096), ("falcon-mamba-7b", 2, 2,
+                                                   GRAD_SCAN_LEN))
+# the train() driver: deepseek-moe-16b cut to 2 layers (dense_first + 1
+# MoE), short sequences: the point is the checkpoint at full width
+DRIVER_LAYERS, DRIVER_BATCH, DRIVER_LEN, DRIVER_STEPS = 2, 4, 256, 3
 
 
 def log(msg):
@@ -674,7 +746,7 @@ def phase_decode(device):
     from repro_torch.kernels.decode_attention import (decode_attention,
                                                       decode_attention_plain)
     gen = torch.Generator(device=device).manual_seed(4)
-    worst = 0.0
+    worst = worst_192 = 0.0
     for B, S, H, KV, hd, dtype, lens in DECODE_CASES:
         q = _randn(gen, (B, H, hd), dtype, device)
         k = _randn(gen, (B, S, KV, hd), dtype, device)
@@ -686,7 +758,10 @@ def phase_decode(device):
         ref = decode_attention_plain(q, k, v, lengths)
         err = hold(out, ref, *ATTN_TOL[dtype],
                    f"decode B={B} S={S} H={H} KV={KV} hd={hd} {dtype}")
-        worst = max(worst, err)
+        if hd == 192:
+            worst_192 = max(worst_192, err)
+        else:
+            worst = max(worst, err)
         log(f"phase 4 decode_attention B={B} S={S} H={H} KV={KV} hd={hd} "
             f"{dtype} lengths={lens or 'random'}: max_abs_err={err:.3e} "
             f"(rtol, atol {ATTN_TOL[dtype]})")
@@ -694,7 +769,19 @@ def phase_decode(device):
     torch.cuda.empty_cache()
     tensor_core_check("decode_attention", "decode_split_mma_kernel", 4)
 
-    B, S, H, KV, hd = DECODE_TIMED
+    timed = time_decode(gen, DECODE_TIMED, device)
+    timed["hd192"] = dict(time_decode(gen, DECODE_TIMED_192, device),
+                          max_abs_err=worst_192)
+    return dict(max_abs_err=worst, **timed)
+
+
+def time_decode(gen, shape, device) -> dict:
+    """K4, its plain version and one SDPA call timed at ``shape`` (B, S,
+    H, KV, hd), bf16, full lengths, beside the byte bound."""
+    import torch
+    from repro_torch.kernels.decode_attention import (decode_attention,
+                                                      decode_attention_plain)
+    B, S, H, KV, hd = shape
     q = _randn(gen, (B, H, hd), "bfloat16", device)
     k = _randn(gen, (B, S, KV, hd), "bfloat16", device)
     v = _randn(gen, (B, S, KV, hd), "bfloat16", device)
@@ -725,8 +812,8 @@ def phase_decode(device):
         f"tb_per_s={nbytes / ms / 1e9:.3f} tflops={flops / ms / 1e9:.2f}")
     del q, k, v, mask
     torch.cuda.empty_cache()
-    return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms,
-                library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=bound_ms, bound_by=bound_by)
 
 
 def _bound(nbytes: int, flops: int, peak: float):
@@ -742,7 +829,7 @@ def phase_flash(device):
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_plain)
     gen = torch.Generator(device=device).manual_seed(5)
-    worst = 0.0
+    worst = worst_192 = 0.0
     for B, S, H, KV, hd, dtype, causal in FLASH_CASES:
         q = _randn(gen, (B, S, H, hd), dtype, device)
         k = _randn(gen, (B, S, KV, hd), dtype, device)
@@ -752,7 +839,10 @@ def phase_flash(device):
         err = hold(out, ref, *ATTN_TOL[dtype],
                    f"flash B={B} S={S} H={H} KV={KV} hd={hd} {dtype} "
                    f"causal={causal}")
-        worst = max(worst, err)
+        if hd == 192:
+            worst_192 = max(worst_192, err)
+        else:
+            worst = max(worst, err)
         log(f"phase 5 flash_attention B={B} S={S} H={H} KV={KV} hd={hd} "
             f"{dtype} causal={causal}: max_abs_err={err:.3e} "
             f"(rtol, atol {ATTN_TOL[dtype]})")
@@ -760,7 +850,20 @@ def phase_flash(device):
     torch.cuda.empty_cache()
     tensor_core_check("flash_attention", "flash_fwd_mma_kernel", 5)
 
-    B, S, H, KV, hd = FLASH_TIMED
+    timed = time_flash(gen, FLASH_TIMED, device)
+    timed["hd192"] = dict(time_flash(gen, FLASH_TIMED_192, device),
+                          max_abs_err=worst_192)
+    grad_guard_check(device)
+    return dict(max_abs_err=worst, **timed)
+
+
+def time_flash(gen, shape, device) -> dict:
+    """K2, its plain version and one SDPA call timed at ``shape`` (B, S,
+    H, KV, hd), bf16, causal, beside the FLOP bound."""
+    import torch
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    B, S, H, KV, hd = shape
     q = _randn(gen, (B, S, H, hd), "bfloat16", device)
     k = _randn(gen, (B, S, KV, hd), "bfloat16", device)
     v = _randn(gen, (B, S, KV, hd), "bfloat16", device)
@@ -783,8 +886,54 @@ def phase_flash(device):
         f"peak {BF16_FLOPS / 1e12:.0f})")
     del q, k, v
     torch.cuda.empty_cache()
-    return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms,
-                library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=bound_ms, bound_by=bound_by)
+
+
+def grad_guard_check(device) -> None:
+    """Each attention and scan kernel, handed a CUDA tensor that requires
+    grad with grad enabled, raises naming the path training takes, and
+    launches nothing; under no_grad the same call launches."""
+    import torch
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ssm_scan import ssm_scan
+
+    def z(*shape, grad=False):
+        return torch.zeros(shape, device=device, requires_grad=grad)
+
+    calls = {
+        "flash_attention": lambda g: flash_attention(
+            z(1, 64, 2, 64, grad=g), z(1, 64, 2, 64), z(1, 64, 2, 64)),
+        "decode_attention": lambda g: decode_attention(
+            z(1, 2, 64, grad=g), z(1, 64, 2, 64), z(1, 64, 2, 64),
+            torch.full((1,), 64, dtype=torch.int32, device=device)),
+        "ssm_scan": lambda g: ssm_scan(
+            z(1, 64, 32, grad=g), z(1, 64, 16), z(1, 64, 16), z(1, 64, 32),
+            z(32, 16) - 1),
+    }
+    fns = kernel_fns()
+    for name, call in calls.items():
+        before = fns[name].launches
+        try:
+            call(True)
+        except RuntimeError as e:
+            if "no backward" not in str(e):
+                raise
+            message = str(e)
+        else:
+            raise AssertionError(f"{name}: an input that requires grad "
+                                 f"was launched")
+        if fns[name].launches != before:
+            raise AssertionError(f"{name}: launched while refusing")
+        with torch.no_grad():
+            call(True)
+        torch.cuda.synchronize()
+        if fns[name].launches != before + 1:
+            raise AssertionError(f"{name}: no launch under no_grad")
+        log(f"phase 5 gradient guard {name}: a CUDA input that requires "
+            f"grad raises ({message.split(';')[1].strip()}); under no_grad "
+            f"it launches")
 
 
 def serving_config():
@@ -1015,10 +1164,14 @@ def phase_serve(device):
     return params, runs["chat"]
 
 
-def phase_prefill(device, params):
+def phase_prefill(device, params, cfg=None, phase: int = 7):
+    """The prefill path of ``cfg`` (yi-6b by default) in bf16, B=1,
+    S=PREFILL_LEN, through K2 once a layer, beside the FLOP bound of the
+    weights a token multiplies (for MoE: the router, the top-k routed and
+    the shared experts) and causal attention."""
     import torch
     from repro_torch.launch.steps import make_prefill_step
-    cfg = serving_config()
+    cfg = cfg or serving_config()
     gen = torch.Generator(device=device).manual_seed(7)
     tokens = torch.randint(0, cfg.vocab, (1, PREFILL_LEN), generator=gen,
                            device=device)
@@ -1040,20 +1193,30 @@ def phase_prefill(device, params):
         busy_ms, by_kernel = device_profile(
             lambda: prefill(params, {"tokens": tokens}), 1)
         k2_ms = kernel_device_ms(by_kernel, "flash_fwd_mma_kernel")
-    flops = 2 * PREFILL_LEN * (cfg.n_params() - cfg.vocab * cfg.d_model) \
+    flops = 2 * PREFILL_LEN * matmul_weights(cfg) \
         + cfg.n_layers * 4 * cfg.n_heads * cfg.head_dim * \
         PREFILL_LEN * (PREFILL_LEN + 1) // 2
     bound_ms = flops / BF16_FLOPS * 1e3
-    log(f"phase 7 prefill {cfg.name} full width B=1 S={PREFILL_LEN} bf16: "
+    log(f"phase {phase} prefill {cfg.name} full width B=1 S={PREFILL_LEN} "
+        f"bf16 ({cfg.n_layers} layers, {cfg.n_params()} params, "
+        f"{matmul_weights(cfg)} of them multiplied a token): "
         f"K2 launches={counts['flash_attention']} first_call_s={first_s:.3f}"
         f" prefill_ms={ms:.3f} flop_bound_ms={bound_ms:.3f} "
         f"(flops={flops}) roofline_share={bound_ms / ms:.4f} "
         f"prefill_tokens_per_s={PREFILL_LEN / ms * 1e3:.1f} "
         f"device_busy_ms={busy_ms:.3f} idle_share={1 - busy_ms / ms:.3f} "
         f"k2_device_ms={k2_ms:.3f} k2_share_of_busy={k2_ms / busy_ms:.3f}")
-    log(f"phase 7 prefill device time by kernel (profiler, ms): "
+    log(f"phase {phase} prefill device time by kernel (profiler, ms): "
         f"{_top(by_kernel)}")
     return dict(launches=counts["flash_attention"], ms=ms)
+
+
+def matmul_weights(cfg) -> int:
+    """The weights a token multiplies: the active parameters (for MoE the
+    router, the top-k routed and the shared experts) without the
+    embedding table, which is gathered; the norms' scales (a few d_model
+    a layer) are counted with them."""
+    return cfg.n_active_params() - cfg.vocab * cfg.d_model
 
 
 def phase_model_check(device, cfg, prefill_len: int, serve_steps: int,
@@ -1356,6 +1519,598 @@ def phase_mamba_serve(device, params):
         f"(reduced, cuda): {answered} responses durable")
 
 
+# ---------------------------------------------------------------------------
+# phases 12-14: the MoE and training slice (deepseek-moe-16b serving and
+# prefill, training at full width)
+# ---------------------------------------------------------------------------
+
+def moe_config(n_layers=None, **changes):
+    """deepseek-moe-16b, its depth cut to ``n_layers`` when given."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    cfg = get_config(MOE_ARCH)
+    if n_layers is not None:
+        changes["n_layers"] = n_layers
+    return dataclasses.replace(cfg, **changes) if changes else cfg
+
+
+def phase_moe_serve(device):
+    """``ServeEngine`` on deepseek-moe-16b at full width and depth with the
+    JAX serve command's traffic, K4 launched once a layer a step; then
+    the serve command (reduced config) on the card -> (params, the run's
+    numbers)."""
+    import tempfile
+
+    from repro_torch.launch import serve
+    from repro_torch.serving import DurableRequestQueue
+    cfg = moe_config()
+    reqs = command_requests(cfg)
+    eng, r = drive_engine(cfg, None, reqs, SERVE_BATCH, SERVE_NEW, device,
+                          {"decode_attention": cfg.n_layers})
+    params = eng.params
+    del eng
+    s = step_numbers(cfg, params, SERVE_BATCH, SERVE_PROMPT + SERVE_NEW - 2,
+                     device)
+    log(f"phase 12 serve smoke {cfg.name} full width ({cfg.n_layers} layers:"
+        f" a dense FFN of {cfg.dense_ff_first}, then {cfg.n_experts} routed "
+        f"experts of {cfg.d_ff}, top-{cfg.top_k}, and {cfg.n_shared_experts}"
+        f" shared; d_model {cfg.d_model}, {cfg.n_params()} params, "
+        f"{cfg.param_dtype}, "
+        f"max_len {SERVE_MAX_LEN}; the JAX serve command's traffic): "
+        f"{r['n']}/{len(reqs)} requests answered, batch {SERVE_BATCH}, "
+        f"{SERVE_NEW} tokens each, " + _serve_line(r, s))
+    log(f"phase 12 serve smoke: serve_step device time by kernel at the "
+        f"last position (profiler, ms per step): {_top(s['by_kernel'])}")
+    with tempfile.TemporaryDirectory() as tmp:
+        serve.main(["--dir", tmp, "--arch", MOE_ARCH])
+        served = DurableRequestQueue(tmp)
+        answered = len(served.responses())
+        served.close()
+    if answered != SERVE_REQUESTS:
+        raise AssertionError(f"serve command: {answered} responses")
+    log(f"phase 12 python -m repro_torch.launch.serve --arch {MOE_ARCH} "
+        f"(reduced, cuda): {answered} responses durable")
+    return params, r
+
+
+def moe_check_config():
+    """deepseek-moe-16b cut to MOE_CHECK_LAYERS layers for the fp32 model
+    check, with the capacity factor raised to n_experts / top_k so that no
+    (token, expert) pair is dropped: a decode step routes its 4 tokens as
+    one chunk with a capacity of 1 at the config's 1.25, where the forward
+    routes chunks of 128 with a capacity of 15, so with drops the two drop
+    different pairs by design (the reduced configs route drop-free for the
+    same reason)."""
+    cfg = moe_config(MOE_CHECK_LAYERS)
+    return moe_config(MOE_CHECK_LAYERS,
+                      capacity_factor=cfg.n_experts / cfg.top_k)
+
+
+def moe_drops(cfg, params, x) -> int:
+    """(token, expert) pairs of ``x`` past their expert's capacity, counted
+    from the router's choices as ``moe_ffn`` chunks and routes them."""
+    import math
+
+    import torch
+    from repro_torch.models.moe import _moe_chunks, _route
+    T = x.shape[0] * x.shape[1]
+    nc = _moe_chunks(T)
+    tc = T // nc
+    cap = int(max(1, math.ceil(tc * cfg.top_k / cfg.n_experts
+                               * cfg.capacity_factor)))
+    _, top_e = _route(cfg, params, x.reshape(nc, tc, -1))
+    counts = torch.stack([torch.bincount(e.reshape(-1),
+                                         minlength=cfg.n_experts)
+                          for e in top_e])
+    return int((counts - cap).clamp_min(0).sum())
+
+
+def phase_moe_layer_check(device) -> None:
+    """One deepseek-moe-16b MoE layer at full width in fp32 (TF32 off), at
+    the prefill's and a decode step's shapes (MOE_LAYER_SHAPES).  Drop-free
+    (capacity factor n_experts / top_k, no drop counted), ``moe_ffn`` on
+    the card equals ``moe_ffn_dense_reference``, which runs every expert
+    on every token and so shares none of the dispatch.  At the config's
+    capacity factor, where capacity binds (drops counted, more than 0),
+    ``moe_ffn`` on the card equals the same function on the CPU, which
+    tests/test_torch_moe.py holds to the JAX package's: the card's stable
+    argsort, searchsorted and scatter with repeated drop rows drop the same
+    pairs.  At the prefill shape the gradients of a random projection of
+    the output with respect to the input and every parameter are held to
+    the CPU's as well.  Tolerance MOE_TOL relative and MOE_TOL of the
+    largest value absolute; gradients GRAD_TOL likewise."""
+    import torch
+    from repro_torch.models.moe import init_moe, moe_ffn, \
+        moe_ffn_dense_reference
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    base = moe_config(param_dtype="float32", compute_dtype="float32")
+    free = moe_config(param_dtype="float32", compute_dtype="float32",
+                      capacity_factor=base.n_experts / base.top_k)
+    params = init_moe(base, torch.Generator(device=device).manual_seed(0),
+                      device)
+    cpu = {k: v.cpu() for k, v in params.items()}
+    gen = torch.Generator(device=device).manual_seed(13)
+    parts = []
+    for B, S in MOE_LAYER_SHAPES:
+        x = _randn(gen, (B, S, base.d_model), "float32", device)
+        if moe_drops(free, params, x):
+            raise AssertionError(f"MoE B={B} S={S}: drops at capacity "
+                                 f"factor {free.capacity_factor}")
+        with torch.no_grad():
+            ref = moe_ffn_dense_reference(free, params, x)
+            err = hold(moe_ffn(free, params, x), ref, MOE_TOL,
+                       MOE_TOL * float(ref.abs().max()),
+                       f"MoE B={B} S={S} vs the dense reference")
+        drops = moe_drops(base, params, x)
+        if drops == 0 or drops != moe_drops(base, cpu, x.cpu()):
+            raise AssertionError(f"MoE B={B} S={S}: {drops} drops at "
+                                 f"capacity factor {base.capacity_factor} "
+                                 f"on the card, "
+                                 f"{moe_drops(base, cpu, x.cpu())} on the CPU")
+        live = {k: v.clone().requires_grad_() for k, v in params.items()}
+        live_cpu = {k: v.clone().requires_grad_() for k, v in cpu.items()}
+        xg, xg_cpu = x.clone().requires_grad_(), x.cpu().requires_grad_()
+        out, out_cpu = moe_ffn(base, live, xg), moe_ffn(base, live_cpu,
+                                                        xg_cpu)
+        bind = hold(out.detach().cpu(), out_cpu.detach(), MOE_TOL,
+                    MOE_TOL * float(out_cpu.detach().abs().max()),
+                    f"MoE B={B} S={S} binding capacity, card vs CPU")
+        line = (f"B={B} S={S}: drop-free vs dense max_abs_err={err:.3e}; "
+                f"capacity factor {base.capacity_factor}, {drops} of "
+                f"{B * S * base.top_k} pairs dropped on the card and the "
+                f"CPU, card vs CPU max_abs_err={bind:.3e}")
+        if S > 1:
+            cot = _randn(gen, out.shape, "float32", device)
+            names = ["x"] + list(live)
+            grads = torch.autograd.grad((out * cot).sum(),
+                                        [xg] + list(live.values()))
+            grads_cpu = torch.autograd.grad(
+                (out_cpu * cot.cpu()).sum(), [xg_cpu] + list(
+                    live_cpu.values()))
+            gerr = max(hold(g.cpu(), gc, GRAD_TOL,
+                            GRAD_TOL * float(gc.abs().max()),
+                            f"MoE binding capacity grad {n}, card vs CPU")
+                       for n, g, gc in zip(names, grads, grads_cpu))
+            line += (f", gradients of x and {len(live)} parameters "
+                     f"max_abs_err={gerr:.3e}")
+            del grads, grads_cpu, cot
+        parts.append(line)
+        del live, live_cpu, xg, xg_cpu, out, out_cpu, ref, x
+    del params, cpu
+    torch.cuda.empty_cache()
+    log(f"phase 13 MoE layer {base.name} full width fp32 ({base.n_experts} "
+        f"experts of {base.d_ff}, top-{base.top_k}, {base.n_shared_experts} "
+        f"shared; rtol=MOE_TOL={MOE_TOL}, atol=MOE_TOL x max|ref|, "
+        f"gradients {GRAD_TOL}): " + "; ".join(parts))
+
+
+def train_batch(gen, cfg, B: int, S: int, device) -> dict:
+    """Random tokens and their next tokens as labels."""
+    import torch
+    toks = torch.randint(0, cfg.vocab, (B, S), generator=gen, device=device)
+    return {"tokens": toks, "labels": torch.roll(toks, -1, dims=1)}
+
+
+def train_flops(cfg, B: int, S: int) -> tuple:
+    """(bf16 tensor-core flops, fp32 flops) of one training step's least
+    work: 6 x the weights a token multiplies x tokens, and causal
+    attention's two products three times (forward, and twice that
+    backward); a mamba layer's scan, 6 fp32 flops a (step, channel,
+    state), three times."""
+    from repro_torch.models import layer_specs
+    mixers = [m for m, _ in layer_specs(cfg)]
+    attn = 3 * mixers.count("attn") * 4 * B * cfg.n_heads * cfg.head_dim \
+        * S * (S + 1) // 2
+    scan = 3 * mixers.count("mamba") * 6 * B * S * cfg.d_inner * \
+        cfg.ssm_state
+    return 6 * matmul_weights(cfg) * B * S + attn, scan
+
+
+def train_cell(device, cfg, B: int, S: int, accum: int, steps: int,
+               where: str) -> dict:
+    """``make_train_step(cfg, accum)`` for ``steps`` steps in bf16 at
+    full width from seed 0, with the gates: the first step's loss equals
+    the loss through the kernels (``loss_fn(use_kernels=True)`` under
+    no_grad, micro-batch by micro-batch, on the same parameters and
+    batch) within TRAIN_LOSS_TOL; it is finite and within 0.5 of
+    ln(vocab) + 1/2 (a random model's logits have unit variance at init,
+    and E[logsumexp] of V unit normals is ln V + 1/2); the gradient norm
+    is finite; every parameter was updated: after the first step each
+    one's first moment (fp32) is nonzero somewhere.  (Its bf16 value need
+    not change yet: the schedule's first learning rate, 3e-4 / 100 of
+    warmup, moves a weight by less than half a bf16 step, and a norm
+    scale of exactly 1.0 not at all; the count that did change is
+    printed.)  -> numbers."""
+    import math
+
+    import torch
+    from repro_torch.launch.steps import make_train_step, opt_config
+    from repro_torch.models import init_params, loss_fn
+    from repro_torch.optim import init_opt_state
+    from repro_torch.optim.adamw import tree_leaves
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=device).manual_seed(0))
+    opt = init_opt_state(opt_config(cfg), params)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    gen = torch.Generator(device=device).manual_seed(11)
+    batches = [train_batch(gen, cfg, B, S, device) for _ in range(steps)]
+    with torch.no_grad():
+        kernel_loss = sum(float(loss_fn(cfg, params, {
+            k: v.reshape(accum, B // accum, S)[i]
+            for k, v in batches[0].items()}, use_kernels=True))
+            for i in range(accum)) / accum
+    step = make_train_step(cfg, accum)
+    first = params
+    reset_counts()                      # the training path starts here
+    times, losses, norms = [], [], []
+    for i, batch in enumerate(batches):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, metrics = step(params, opt, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(metrics["loss"]))
+        norms.append(float(metrics["grad_norm"]))
+        if i == 0:
+            n_leaves = len(tree_leaves(first))
+            changed = sum(not torch.equal(a, b) for a, b in
+                          zip(tree_leaves(params), tree_leaves(first)))
+            still = sum(not bool(m.abs().amax() > 0)
+                        for m in tree_leaves(opt["m"]))
+            del first
+    counts = read_counts()              # ... and ends here
+    expect_launches(counts, {}, where)  # the plain paths: no kernel
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    ln_v = math.log(cfg.vocab)
+    if not all(math.isfinite(x) for x in losses + norms):
+        raise AssertionError(f"{where}: losses {losses}, norms {norms}")
+    if abs(losses[0] - kernel_loss) > TRAIN_LOSS_TOL:
+        raise AssertionError(f"{where}: loss {losses[0]} vs the kernels' "
+                             f"{kernel_loss}")
+    if abs(losses[0] - (ln_v + 0.5)) > 0.5:
+        raise AssertionError(f"{where}: loss {losses[0]}, ln(V) + 1/2 = "
+                             f"{ln_v + 0.5}")
+    if still:
+        raise AssertionError(f"{where}: {still} of {n_leaves} parameters "
+                             f"have a zero first moment after a step")
+
+    def one():
+        nonlocal params, opt
+        params, opt, _ = step(params, opt, batches[-1])
+
+    busy_ms, by_kernel = device_profile(one, 1)
+    del params, opt
+    torch.cuda.empty_cache()
+    step_s = sum(times[1:]) / max(1, len(times) - 1)
+    mm, fp32 = train_flops(cfg, B, S)
+    bound_ms = (mm / BF16_FLOPS + fp32 / FP32_FLOPS) * 1e3
+    return dict(init_s=init_s, times=times, losses=losses, norms=norms,
+                kernel_loss=kernel_loss, ln_v=ln_v, step_ms=step_s * 1e3,
+                tokens_per_s=B * S / step_s, bound_ms=bound_ms, mm=mm,
+                fp32=fp32, busy_ms=busy_ms, by_kernel=by_kernel,
+                peak_gb=peak_gb, n_leaves=n_leaves, changed=changed)
+
+
+def _train_line(cfg, B, S, accum, r) -> str:
+    return (f"{cfg.n_params()} params ({matmul_weights(cfg)} multiplied a "
+            f"token), {cfg.param_dtype}, batch {B} x S={S}, accum {accum}: "
+            f"losses={[round(x, 4) for x in r['losses']]} "
+            f"kernels_loss={r['kernel_loss']:.4f} (|diff| "
+            f"{abs(r['losses'][0] - r['kernel_loss']):.2e} <= "
+            f"{TRAIN_LOSS_TOL}) ln_v_plus_half={r['ln_v'] + 0.5:.4f} "
+            f"grad_norms={[round(x, 4) for x in r['norms']]} "
+            f"{r['n_leaves']}/{r['n_leaves']} parameters updated (first "
+            f"moment nonzero), {r['changed']} of them changed in bf16 by "
+            f"step 1; "
+            f"step_s={[round(x, 3) for x in r['times']]} step_ms="
+            f"{r['step_ms']:.1f} (the steps after the first) tokens_per_s="
+            f"{r['tokens_per_s']:.1f} bound_ms={r['bound_ms']:.1f} "
+            f"(operations: {r['mm']} bf16 flops at {BF16_FLOPS / 1e12:.0f} "
+            f"TFLOP/s + {r['fp32']} fp32 at {FP32_FLOPS / 1e12:.0f}) "
+            f"roofline_share={r['bound_ms'] / r['step_ms']:.4f} "
+            f"device_busy_ms={r['busy_ms']:.1f} idle_share="
+            f"{1 - r['busy_ms'] / r['step_ms']:.3f} init_s="
+            f"{r['init_s']:.1f} peak_device_gb={r['peak_gb']:.2f}")
+
+
+def phase_train(device) -> None:
+    """Training at full width, depth cut: deepseek-moe-16b at
+    TRAIN_MOE_LAYERS layers and falcon-mamba-7b at TRAIN_MAMBA_LAYERS,
+    through the chunked attention and scan."""
+    import dataclasses
+    cfg = moe_config(TRAIN_MOE_LAYERS)
+    r = train_cell(device, cfg, TRAIN_BATCH, TRAIN_LEN, TRAIN_ACCUM,
+                   TRAIN_STEPS, f"train {cfg.name}")
+    log(f"phase 14 train {cfg.name} full width, reduced: n_layers "
+        f"{cfg.n_layers} (of 28: dense_first + {cfg.n_layers - 1} MoE), "
+        + _train_line(cfg, TRAIN_BATCH, TRAIN_LEN, TRAIN_ACCUM, r))
+    log(f"phase 14 train {cfg.name}: device time by kernel of one step "
+        f"(profiler, ms): {_top(r['by_kernel'])}")
+    mcfg = dataclasses.replace(mamba_config(), n_layers=TRAIN_MAMBA_LAYERS)
+    r = train_cell(device, mcfg, 1, TRAIN_LEN, 1, 2, f"train {mcfg.name}")
+    log(f"phase 14 train {mcfg.name} full width, reduced: n_layers "
+        f"{mcfg.n_layers} (of 64), " + _train_line(mcfg, 1, TRAIN_LEN, 1, r))
+    log(f"phase 14 train {mcfg.name}: device time by kernel of one step "
+        f"(profiler, ms): {_top(r['by_kernel'])}")
+
+
+def phase_grad_check(device) -> None:
+    """One layer's training paths in fp32 at full width against autograd
+    through the plain versions: deepseek-moe-16b's attention at S=4096
+    (``causal_attention_chunked`` takes its chunked branch above 2048),
+    and falcon-mamba-7b's scan at din 8192, ds 16, S=GRAD_SCAN_LEN."""
+    import torch
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+    from repro_torch.kernels.ssm_scan import ssm_scan_plain
+    from repro_torch.models.attention import causal_attention_chunked
+    from repro_torch.models.mamba import selective_scan_chunked
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device=device).manual_seed(12)
+    cfg = moe_config()
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    ins = [_randn(gen, (1, TRAIN_LEN, n, hd), "float32", device)
+           for n in (H, KV, KV)]
+    cot = _randn(gen, (1, TRAIN_LEN, H, hd), "float32", device)
+    errs = {}
+    for name, fn in (("chunked", lambda q, k, v: causal_attention_chunked(
+            q, k, v, H // KV)), ("plain", flash_attention_plain)):
+        leaves = [t.clone().requires_grad_() for t in ins]
+        out = fn(*leaves)
+        errs[name] = [out.detach()] + list(torch.autograd.grad(
+            (out * cot).sum(), leaves))
+        del out, leaves
+    attn_err = max(hold(a, b, GRAD_TOL, GRAD_TOL, f"attention grad {n}")
+                   for n, a, b in zip(("out", "dq", "dk", "dv"),
+                                      errs["chunked"], errs["plain"]))
+    del errs, ins, cot
+    torch.cuda.empty_cache()
+    mcfg = mamba_config()
+    args = scan_inputs(gen, 1, GRAD_SCAN_LEN, mcfg.d_inner, mcfg.ssm_state,
+                       "float32", device)
+    cy = _randn(gen, (1, GRAD_SCAN_LEN, mcfg.d_inner), "float32", device)
+    ch = _randn(gen, (1, mcfg.d_inner, mcfg.ssm_state), "float32", device)
+    res = {}
+    for name, fn in (("chunked", selective_scan_chunked),
+                     ("plain", ssm_scan_plain)):
+        leaves = [t.clone().requires_grad_() for t in args]
+        y, h = fn(*leaves)
+        res[name] = [y.detach(), h.detach()] + list(torch.autograd.grad(
+            (y * cy).sum() + (h * ch).sum(), leaves))
+        del y, h, leaves
+    scan_err = max(hold(a, b, GRAD_TOL, GRAD_TOL, f"scan grad {n}")
+                   for n, a, b in zip(("y", "h", "d_dt", "d_B", "d_C",
+                                       "d_x", "d_A"),
+                                      res["chunked"], res["plain"]))
+    del res, args
+    torch.cuda.empty_cache()
+    log(f"phase 14 fp32 gradients, one layer at full width, chunked vs "
+        f"autograd through the plain version (rtol=atol={GRAD_TOL}): "
+        f"attention B=1 S={TRAIN_LEN} H={H} KV={KV} hd={hd} output, dq, "
+        f"dk, dv max_abs_err={attn_err:.3e}; selective scan B=1 "
+        f"S={GRAD_SCAN_LEN} din={mcfg.d_inner} ds={mcfg.ssm_state} y, "
+        f"h_final and the five input gradients max_abs_err={scan_err:.3e}")
+
+
+@contextlib.contextmanager
+def plain_training_paths():
+    """Inside: the model's training paths are the oracles, with autograd
+    through them -- ``flash_attention_plain`` (all S x S scores) for
+    ``causal_attention_chunked``, ``ssm_scan_plain`` (a step at a time)
+    for ``selective_scan_chunked``, ``moe_ffn_dense_reference`` (every
+    expert on every token) for ``moe_ffn``."""
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+    from repro_torch.kernels.ssm_scan import ssm_scan_plain
+    from repro_torch.models import attention, blocks, mamba
+    from repro_torch.models.moe import moe_ffn_dense_reference
+    swaps = [(attention, "causal_attention_chunked",
+              lambda q, k, v, n_kv_groups: flash_attention_plain(q, k, v)),
+             (mamba, "selective_scan_chunked", ssm_scan_plain),
+             (blocks, "moe_ffn", moe_ffn_dense_reference)]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
+    try:
+        for mod, name, fn in swaps:
+            setattr(mod, name, fn)
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def phase_train_grad_check(device) -> None:
+    """The whole train step against autograd through the oracles, in fp32
+    (TF32 off), for each TRAIN_CHECK model at full width, depth cut:
+    ``make_train_step(cfg, accum=2)`` (chunked attention and scan, the
+    dispatching MoE, remat "nothing", two micro-batches summed) takes one
+    step; the reference is ``torch.autograd.grad`` of ``loss_fn`` over the
+    whole batch inside :func:`plain_training_paths`, with no remat.  MoE
+    routes drop-free (capacity factor n_experts / top_k), where the dense
+    reference is exact.  After one step AdamW's first moment is (1 - b1)
+    x the clipped gradient, so every leaf of it is held to the reference's
+    gradient clipped by the reference's norm: GRAD_TOL relative and
+    GRAD_TOL of the leaf's largest value absolute; the loss and the norm
+    to GRAD_TOL relative.  No kernel is launched."""
+    import dataclasses
+    import math
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_train_step, opt_config
+    from repro_torch.models import init_params, loss_fn
+    from repro_torch.optim import init_opt_state
+    from repro_torch.optim.adamw import tree_leaves, tree_map
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    for arch, n_layers, B, S in TRAIN_CHECK:
+        cfg = get_config(arch)
+        changes = dict(n_layers=n_layers, param_dtype="float32",
+                       compute_dtype="float32")
+        if cfg.n_experts:
+            changes["capacity_factor"] = cfg.n_experts / cfg.top_k
+        cfg = dataclasses.replace(cfg, **changes)
+        params = init_params(cfg, torch.Generator(device=device)
+                             .manual_seed(0))
+        batch = train_batch(torch.Generator(device=device).manual_seed(14),
+                            cfg, B, S, device)
+        ocfg = opt_config(cfg)
+        reset_counts()
+        _, opt, metrics = make_train_step(cfg, accum=2)(
+            params, init_opt_state(ocfg, params), batch)
+        expect_launches(read_counts(), {}, f"train check {cfg.name}")
+        moments = tree_leaves(opt["m"])
+        n_leaves = len(moments)
+        loss, norm = float(metrics["loss"]), float(metrics["grad_norm"])
+        del opt, metrics
+        leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
+        it = iter(leaves)
+        live = tree_map(lambda _: next(it), params)
+        with plain_training_paths(), torch.enable_grad():
+            ref_loss = loss_fn(cfg, live, batch, remat_policy="none_inference")
+            grads = torch.autograd.grad(ref_loss, leaves, allow_unused=True,
+                                        materialize_grads=True)
+        ref_loss = float(ref_loss.detach())
+        del leaves, live, params
+        ref_norm = math.sqrt(sum(float(g.square().sum()) for g in grads))
+        clip = min(1.0, ocfg.grad_clip / max(ref_norm, 1e-9))
+        for name, mine, ref in (("loss", loss, ref_loss),
+                                ("grad_norm", norm, ref_norm)):
+            if abs(mine - ref) > GRAD_TOL * abs(ref):
+                raise AssertionError(f"train check {cfg.name}: {name} "
+                                     f"{mine} vs the oracles' {ref}")
+        err = 0.0
+        for i, (m, g) in enumerate(zip(moments, grads)):
+            want = (1 - ocfg.b1) * clip * g
+            err = max(err, hold(m, want, GRAD_TOL,
+                                GRAD_TOL * float(want.abs().max()),
+                                f"train check {cfg.name} leaf {i} "
+                                f"{tuple(g.shape)}"))
+        del moments, grads
+        torch.cuda.empty_cache()
+        log(f"phase 14 train step check {cfg.name} full width fp32, "
+            f"reduced: n_layers {n_layers}, batch {B} x S={S}, accum 2, "
+            f"remat nothing, vs autograd through flash_attention_plain, "
+            f"ssm_scan_plain and moe_ffn_dense_reference: loss {loss:.6f} "
+            f"vs {ref_loss:.6f}, grad_norm {norm:.6f} vs "
+            f"{ref_norm:.6f}, first moments of {n_leaves} parameters "
+            f"max_abs_err={err:.3e} (rtol={GRAD_TOL}, atol={GRAD_TOL} x "
+            f"the leaf's max)")
+
+
+def phase_train_driver(device) -> None:
+    """The ``train()`` driver at full width (deepseek-moe-16b cut to
+    DRIVER_LAYERS layers): DRIVER_STEPS steps with a checkpoint at the
+    last; the checkpoint restored equals the state bit for bit; a second
+    call resumes from it and runs one more step.  Then the command line,
+    on the reduced config: a crash at step 6 (exit 42) and a rerun that
+    resumes from step 4 and consumes every shard once."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch.checkpoint import DurableCheckpointer
+    from repro_torch.data import DurableShardQueue
+    from repro_torch.launch.train import state_from_numpy, train
+    from repro_torch.optim.adamw import tree_leaves
+    cfg = moe_config(DRIVER_LAYERS)
+    ckpt_bytes = 10 * cfg.n_params()    # bf16 params, fp32 m and v
+    tmp = tempfile.mkdtemp(prefix="repro_torch_train_")
+    try:
+        free = shutil.disk_usage(tmp).free
+        log(f"phase 14 disk: {free} bytes free under {tempfile.gettempdir()}"
+            f" for checkpoints of about {ckpt_bytes} bytes (two kept)")
+        if free < 2 * ckpt_bytes + (4 << 30):
+            raise AssertionError(f"only {free} bytes free for two "
+                                 f"checkpoints of {ckpt_bytes}")
+        lines = []
+
+        def keep(msg):
+            lines.append(msg)
+            log(f"  train(): {msg}")
+
+        first = train(cfg, steps=DRIVER_STEPS, batch=DRIVER_BATCH,
+                      seq_len=DRIVER_LEN, ckpt_dir=tmp,
+                      ckpt_every=DRIVER_STEPS, device=device, log=keep)
+        for save in first["saves"]:
+            log(f"phase 14 checkpoint at step {save['step']}: "
+                f"{save['bytes']} bytes in {save['seconds']:.2f} s "
+                f"({save['bytes'] / save['seconds'] / 1e9:.2f} GB/s, "
+                f"device to host, npz write and fsync)")
+        t0 = time.perf_counter()
+        step, shards, _ = DurableCheckpointer(
+            os.path.join(tmp, "ckpt"), background=False).restore_latest()
+        back = {k: state_from_numpy(v, device, cfg.param_dtype)
+                for k, v in shards[0].items()}
+        restore_s = time.perf_counter() - t0
+        del shards
+        saved = {"params": first["params"], "opt": first["opt_state"]}
+        pairs = list(zip(tree_leaves(back), tree_leaves(saved)))
+        if step != DRIVER_STEPS or not all(
+                a.dtype == b.dtype and torch.equal(a, b) for a, b in pairs):
+            raise AssertionError("the restored checkpoint differs from the "
+                                 "saved state")
+        del back, saved, pairs, first
+        torch.cuda.empty_cache()
+        lines.clear()
+        second = train(cfg, steps=DRIVER_STEPS + 1, batch=DRIVER_BATCH,
+                       seq_len=DRIVER_LEN, ckpt_dir=tmp,
+                       ckpt_every=DRIVER_STEPS, device=device, log=keep)
+        if not lines[0].startswith(f"[recovery] resumed from step "
+                                   f"{DRIVER_STEPS}") or \
+                second["start_step"] != DRIVER_STEPS or \
+                len(second["losses"]) != 1:
+            raise AssertionError(f"train() did not resume: {lines}")
+        log(f"phase 14 train() {cfg.name} full width, reduced: n_layers "
+            f"{cfg.n_layers} ({cfg.n_params()} params), batch {DRIVER_BATCH}"
+            f" x S={DRIVER_LEN}: {DRIVER_STEPS} steps, checkpoint at step "
+            f"{DRIVER_STEPS} restored bit for bit ({restore_s:.2f} s to read"
+            f" and place on the card), a second call resumed from step "
+            f"{DRIVER_STEPS} and ran step {DRIVER_STEPS + 1} (loss "
+            f"{second['losses'][0]:.4f})")
+        del second
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    tmp = tempfile.mkdtemp(prefix="repro_torch_train_cli_")
+    try:
+        args = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+                MOE_ARCH, "--steps", "12", "--ckpt-every", "4",
+                "--ckpt-dir", tmp]
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        p1 = subprocess.run(args + ["--crash-at", "6"], env=env, cwd=ROOT,
+                            capture_output=True, text=True, timeout=300)
+        if p1.returncode != 42 or "step 4: " not in p1.stdout:
+            raise AssertionError(f"train --crash-at 6: exit "
+                                 f"{p1.returncode}\n{p1.stdout}\n"
+                                 f"{p1.stderr[-3000:]}")
+        p2 = subprocess.run(args, env=env, cwd=ROOT, capture_output=True,
+                            text=True, timeout=300)
+        steps = [ln.split(":")[0] for ln in p2.stdout.splitlines()
+                 if ln.startswith("step ")]
+        if p2.returncode != 0 or "[recovery] resumed from step 4" not in \
+                p2.stdout or "done: 12 steps" not in p2.stdout or \
+                steps != [f"step {i}" for i in range(5, 13)]:
+            raise AssertionError(f"train rerun: exit {p2.returncode}\n"
+                                 f"{p2.stdout}\n{p2.stderr[-3000:]}")
+        q = DurableShardQueue(os.path.join(tmp, "data"))
+        cursor = q.recover()
+        q.close()
+        if cursor != 12:
+            raise AssertionError(f"data cursor {cursor} after 12 steps")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"phase 14 python -m repro_torch.launch.train --arch {MOE_ARCH} "
+        f"--steps 12 --ckpt-every 4 (reduced, cuda): --crash-at 6 exited 42"
+        f" after step 6; the rerun resumed from step 4, ran steps 5-12, "
+        f"printed 'done: 12 steps', and the data cursor is 12: shards 0-11 "
+        f"each consumed once in the committed history")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1409,6 +2164,21 @@ def main() -> int:
     del params
     torch.cuda.empty_cache()
     phase_model_check(device, mamba_config(), MAMBA_CHECK_LEN, 0, 11)
+    params, moe_serve = phase_moe_serve(device)
+    moe_prefill = phase_prefill(device, params, moe_config(), 13)
+    del params
+    torch.cuda.empty_cache()
+    check = moe_check_config()
+    log(f"phase 13 model check config: {check.name} reduced: n_layers "
+        f"{check.n_layers} (65 GB in fp32 at full depth), capacity_factor "
+        f"{check.capacity_factor:.4f} = n_experts / top_k, so no pair is "
+        f"dropped (see moe_check_config)")
+    phase_model_check(device, check, PREFILL_LEN, MODEL_STEPS, 13)
+    phase_moe_layer_check(device)
+    phase_grad_check(device)
+    phase_train_grad_check(device)
+    phase_train(device)
+    phase_train_driver(device)
     kernels = [{
         "name": "fleet_step", "route": "cuda",
         "source": "src/repro_torch/csrc/fleet_step.cu",
@@ -1422,11 +2192,13 @@ def main() -> int:
         "source": "src/repro_torch/csrc/decode_attention.cu",
         "replaces": "src/repro/kernels/decode_attention/kernel.py:63",
         "launches": serve["launches"]["decode_attention"], **decode,
+        "launches_deepseek_moe": moe_serve["launches"]["decode_attention"],
     }, {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:71",
         "launches": prefill["launches"], **flash,
+        "launches_deepseek_moe": moe_prefill["launches"],
     }, {
         "name": "ssm_scan", "route": "cuda",
         "source": "src/repro_torch/csrc/ssm_scan.cu",

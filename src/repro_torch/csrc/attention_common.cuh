@@ -175,6 +175,7 @@ static int dispatch_type_hd(int dtype, int hd, F&& f) {
       case 32: return f.template operator()<float, 32>();
       case 64: return f.template operator()<float, 64>();
       case 128: return f.template operator()<float, 128>();
+      case 192: return f.template operator()<float, 192>();
     }
   } else if (dtype == attn::DTYPE_BF16) {
     switch (hd) {
@@ -182,6 +183,7 @@ static int dispatch_type_hd(int dtype, int hd, F&& f) {
       case 32: return f.template operator()<__nv_bfloat16, 32>();
       case 64: return f.template operator()<__nv_bfloat16, 64>();
       case 128: return f.template operator()<__nv_bfloat16, 128>();
+      case 192: return f.template operator()<__nv_bfloat16, 192>();
     }
   }
   return static_cast<int>(cudaErrorInvalidValue);

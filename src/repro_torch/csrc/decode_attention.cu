@@ -42,13 +42,16 @@
 // tests/test_torch_attention_tiles.py).  At the end the four warps'
 // (o, m, l) are merged in shared memory, reusing the ring.  About 106 KB
 // of shared memory at hd 128: two blocks a SM, 16 stages of 8 KB in
-// flight on a SM.
+// flight on a SM.  At hd 192 (12 k-steps, 24 output tiles a warp) a block
+// holds 156 KB: one block a SM.
 //
 // decode_split_kernel (fp32, the fp32 model checks): the first SIMT
 // version.  Each K/V tile of 64 keys is loaded into fp32 shared memory
 // and shared by the G query heads; two threads per key compute the
 // scores, one warp per head row takes the tile's max and sum, and each
-// thread accumulates its (head row, dim) outputs of P V in registers.
+// thread accumulates its (head row, dim) outputs of P V in registers (at
+// hd 192, above the block's 128 threads, two dims a thread for the first
+// 64 threads).
 // It is compiled for G rounded up to a power of two (GP); the padding
 // rows of Q are zeros whose results are dropped.
 #include <type_traits>
@@ -77,7 +80,11 @@ struct DecodeArgs {
 template <int HD, int GP>
 struct DecodeSmem {
   static constexpr int KST = HD + 8;        // K row stride, in floats
-  static constexpr int NT = THREADS / HD;   // thread groups over head rows
+  // P V ownership: up to 128 dims, thread tid owns dim tid % HD of NT
+  // groups of head rows; above (hd 192), dims tid and tid + THREADS of
+  // every head row
+  static constexpr int NT = HD <= THREADS ? THREADS / HD : 1;
+  static constexpr int DPT = (HD + THREADS - 1) / THREADS;  // dims a thread
   static constexpr int RPT = (GP + NT - 1) / NT;  // head rows per thread
   static constexpr int FLOATS =
       GP * HD + BK * KST + BK * HD + BK * GP + 3 * GP;
@@ -109,12 +116,15 @@ decode_split_kernel(const DecodeArgs a) {
   const int end = min(start + a.split_len, len);
   const size_t part = static_cast<size_t>(bh) * a.n_splits + split;
 
-  // PV ownership: dim d, head rows [g0, g0 + RPT)
+  // PV ownership: dims d + THREADS j (those below HD), head rows
+  // [g0, g0 + RPT)
   const int d = tid % HD;
   const int g0 = (tid / HD) * L::RPT;
-  float acc[L::RPT];
+  float acc[L::RPT][L::DPT];
 #pragma unroll
-  for (int r = 0; r < L::RPT; ++r) acc[r] = 0.f;
+  for (int r = 0; r < L::RPT; ++r)
+#pragma unroll
+    for (int j = 0; j < L::DPT; ++j) acc[r][j] = 0.f;
 
   if (start < end) {
     const T* q = static_cast<const T*>(a.q);
@@ -201,12 +211,18 @@ decode_split_kernel(const DecodeArgs a) {
       // ---- acc = acc * alpha + P V
 #pragma unroll
       for (int r = 0; r < L::RPT; ++r)
-        if (g0 + r < G) acc[r] *= alpha_s[g0 + r];
-      for (int i = 0; i < n_valid; ++i) {
-        const float vv = Vs[i * HD + d];
 #pragma unroll
-        for (int r = 0; r < L::RPT; ++r)
-          if (g0 + r < G) acc[r] += Ps[i * GP + g0 + r] * vv;
+        for (int j = 0; j < L::DPT; ++j)
+          if (g0 + r < G) acc[r][j] *= alpha_s[g0 + r];
+      for (int i = 0; i < n_valid; ++i) {
+#pragma unroll
+        for (int j = 0; j < L::DPT; ++j) {
+          if (d + THREADS * j >= HD) break;
+          const float vv = Vs[i * HD + d + THREADS * j];
+#pragma unroll
+          for (int r = 0; r < L::RPT; ++r)
+            if (g0 + r < G) acc[r][j] += Ps[i * GP + g0 + r] * vv;
+        }
       }
       __syncthreads();
     }
@@ -214,7 +230,10 @@ decode_split_kernel(const DecodeArgs a) {
   // ---- partial (o, m, l) of this split; an empty split leaves (0, -inf, 0)
 #pragma unroll
   for (int r = 0; r < L::RPT; ++r)
-    if (g0 + r < G) a.o_part[(part * G + g0 + r) * HD + d] = acc[r];
+#pragma unroll
+    for (int j = 0; j < L::DPT; ++j)
+      if (g0 + r < G && d + THREADS * j < HD)
+        a.o_part[(part * G + g0 + r) * HD + d + THREADS * j] = acc[r][j];
   if (tid < G) {
     a.m_part[part * G + tid] = start < end ? m_s[tid] : -INFINITY;
     a.l_part[part * G + tid] = start < end ? l_s[tid] : 0.f;

@@ -42,7 +42,8 @@
 // products into one accumulator are not back to back.  The epilogue
 // divides by max(l, 1e-30) and stores the rows below S.  At hd 128 a block
 // holds 85 KB of shared memory and about 210 registers a thread: two
-// blocks, 8 warps, a SM.  (Blocks of 8 warps and 128 queries, which halve
+// blocks, 8 warps, a SM.  At hd 192 (12 k-steps, 24 output tiles a warp)
+// a block holds 125 KB: one block a SM.  (Blocks of 8 warps and 128 queries, which halve
 // the K/V bytes a flop draws from L2, measured no faster.)
 //
 // flash_fwd_kernel (fp32, the fp32 model checks): the first SIMT version.
@@ -50,7 +51,7 @@
 // in both products: key columns tc + 8 j (j < 8) of the scores and dims
 // tc + 8 j (j < hd / 8) of the output, so a row's max and sum are a
 // shuffle among 8 neighbouring lanes.  Scaled Q, K and V are fp32 in
-// shared memory, P reuses the K tile's place.
+// shared memory, P reuses the K tile's place (145 KB at hd 192).
 #include <type_traits>
 
 #include "attention_common.cuh"

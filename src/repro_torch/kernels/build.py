@@ -8,7 +8,8 @@ header is included, so a build takes seconds.  The wrappers bind the C
 functions through ``ctypes``: ``c_void_p`` for every pointer and for the
 stream, ``c_int`` for every int.  Each C function returns
 ``cudaGetLastError()`` after its launches; :func:`check` raises if that is
-not 0.  :func:`sass_opcode_counts` reads the built machine code back
+not 0.  The kernels have no backward, so :func:`refuse_grad` stops a
+launch whose result autograd would need.  :func:`sass_opcode_counts` reads the built machine code back
 (``cuobjdump -sass``), to show which instructions a kernel compiled to.
 """
 from __future__ import annotations
@@ -127,3 +128,15 @@ def check(rc: int, what: str) -> None:
     """Raise unless the C function's ``cudaGetLastError()`` was 0."""
     if rc != 0:
         raise RuntimeError(f"{what} kernel launch failed: cudaError {rc}")
+
+
+def refuse_grad(what: str, tensors, instead: str) -> None:
+    """Raise before a launch whose output autograd would need: the kernels
+    write fresh tensors autograd does not see, so a gradient through them
+    would be lost without a word.  ``instead`` names the path to take."""
+    import torch
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(f"{what}: the CUDA kernel has no backward and an "
+                           f"input requires grad; use {instead}, or call it "
+                           f"under torch.no_grad()")
+

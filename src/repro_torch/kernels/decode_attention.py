@@ -21,8 +21,10 @@ function live here:
 
 :func:`decode_attention` is the wrapper: the plain version for CPU
 tensors, the kernel for CUDA tensors, no other path.  The kernel takes
-fp32 and bf16, head_dim 16, 32, 64 or 128, 1 to 16 query heads per kv
-head, any S, and lengths in [1, S]; anything else raises.
+fp32 and bf16, head_dim 16, 32, 64, 128 or 192, 1 to 16 query heads per
+kv head, any S, and lengths in [1, S]; anything else raises.  It has no
+backward: on a CUDA input that requires grad, with grad enabled, it
+raises.
 """
 from __future__ import annotations
 
@@ -31,11 +33,11 @@ import math
 
 import torch
 
-from .build import bind, check, load_library
+from .build import bind, check, load_library, refuse_grad
 
 NEG_INF = -1e30
 BLOCK_K = 64                # keys per tile of the kernel
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128, 192)
 MAX_GROUP = 16              # query heads per kv head
 BLOCKS_PER_SM = 8           # split target of the grid
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -103,6 +105,8 @@ def _kernel():
 
 
 def _launch(q, k, v, lengths) -> torch.Tensor:
+    refuse_grad("decode_attention", (q, k, v),
+                "use_kernels=False (the plain decode path)")
     _check(q, k, v, lengths)
     B, H, hd = q.shape
     S, KV = k.shape[1], k.shape[2]

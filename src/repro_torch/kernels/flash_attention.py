@@ -20,7 +20,9 @@ function live here:
 
 :func:`flash_attention` is the wrapper: the plain version for CPU tensors,
 the kernel for CUDA tensors, no other path.  The kernel takes fp32 and
-bf16, head_dim 16, 32, 64 or 128 and any S; anything else raises.
+bf16, head_dim 16, 32, 64, 128 or 192 and any S; anything else raises.
+It has no backward: on a CUDA input that requires grad, with grad
+enabled, it raises (training takes ``causal_attention_chunked``).
 """
 from __future__ import annotations
 
@@ -29,10 +31,10 @@ import math
 
 import torch
 
-from .build import bind, check, load_library
+from .build import bind, check, load_library, refuse_grad
 
 NEG_INF = -1e30
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128, 192)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -83,6 +85,9 @@ def _kernel():
 
 
 def _launch(q, k, v, causal: bool) -> torch.Tensor:
+    refuse_grad("flash_attention", (q, k, v),
+                "use_kernels=False (models.attention."
+                "causal_attention_chunked)")
     _check(q, k, v)
     B, S, H, hd = q.shape
     out = torch.empty_like(q)

@@ -22,7 +22,9 @@ implementations of one function live here:
 :func:`ssm_scan` is the wrapper: the plain version for CPU tensors, the
 kernel for CUDA tensors, no other path.  The kernel takes fp32 or bf16
 ``dt``/``x``/``Bt``/``Ct`` (all four of one type), fp32 ``A``, any S and
-din and ds up to 16; anything else raises.
+din and ds up to 16; anything else raises.  It has no backward: on a
+CUDA input that requires grad, with grad enabled, it raises (training
+takes ``selective_scan_chunked``).
 """
 from __future__ import annotations
 
@@ -31,7 +33,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from .build import bind, check, load_library
+from .build import bind, check, load_library, refuse_grad
 
 MAX_STATE = 16
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -102,6 +104,8 @@ def _copies_in_16_bytes(dt, Bt, Ct, x) -> bool:
 
 
 def _launch(dt, Bt, Ct, x, A) -> Tuple[torch.Tensor, torch.Tensor]:
+    refuse_grad("ssm_scan", (dt, Bt, Ct, x, A),
+                "use_kernels=False (models.mamba.selective_scan_chunked)")
     _check(dt, Bt, Ct, x, A)
     Bsz, S, din = x.shape
     ds = Bt.shape[-1]

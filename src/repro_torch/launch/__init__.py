@@ -1,1 +1,1 @@
-"""Step functions and entry points of the port (serving so far)."""
+"""Step functions and entry points of the port: serving and training."""

@@ -1,8 +1,9 @@
 """Layer composition: (mixer, ffn) sub-layer pairs with pre-RMSNorm.
 
-The PyTorch counterpart of ``repro.models.blocks`` for attention and
-mamba mixers and dense FFNs.  MoE FFNs are not ported yet: they raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
+The PyTorch counterpart of ``repro.models.blocks``: attention or mamba
+mixers, and dense, DeepSeekMoE's wider ``dense_first`` or MoE FFNs.
+``use_kernels`` is the JAX package's ``use_pallas``: True runs the kernel
+wrappers, False the chunked training paths.
 """
 from __future__ import annotations
 
@@ -16,13 +17,7 @@ from .common import act_fn, dense_init, rms_norm
 from .config import LayerSpec, ModelConfig
 from .mamba import (init_mamba, init_mamba_cache, mamba_block,
                     mamba_decode_step)
-
-MOE_TODO = "MoE FFNs are not ported yet (ROADMAP Queue 1 item 5)"
-
-
-def _supported(spec: LayerSpec) -> None:
-    if spec[1] == "moe":
-        raise NotImplementedError(MOE_TODO)
+from .moe import init_moe, moe_ffn
 
 
 def init_dense_ffn(cfg: ModelConfig, gen: torch.Generator, d_ff: int,
@@ -48,7 +43,6 @@ def dense_ffn(cfg: ModelConfig, params, x: torch.Tensor) -> torch.Tensor:
 
 def init_layer(cfg: ModelConfig, spec: LayerSpec, gen: torch.Generator,
                device=None) -> dict:
-    _supported(spec)
     mixer, ffn = spec
     dt = getattr(torch, cfg.param_dtype)
     p = {"norm1": torch.ones((cfg.d_model,), dtype=dt, device=device),
@@ -56,21 +50,24 @@ def init_layer(cfg: ModelConfig, spec: LayerSpec, gen: torch.Generator,
                    else init_mamba(cfg, gen, device))}
     if ffn != "none":
         p["norm2"] = torch.ones((cfg.d_model,), dtype=dt, device=device)
-        width = cfg.dense_ff_first if ffn == "dense_first" else cfg.d_ff
-        p["ffn"] = init_dense_ffn(cfg, gen, width, device)
+        if ffn == "moe":
+            p["ffn"] = init_moe(cfg, gen, device)
+        else:
+            width = cfg.dense_ff_first if ffn == "dense_first" else cfg.d_ff
+            p["ffn"] = init_dense_ffn(cfg, gen, width, device)
     return p
 
 
 def _ffn(cfg: ModelConfig, spec: LayerSpec, params, x):
     if spec[1] != "none":
-        x = x + dense_ffn(cfg, params["ffn"],
-                          rms_norm(x, params["norm2"], cfg.norm_eps))
+        ffn = moe_ffn if spec[1] == "moe" else dense_ffn
+        x = x + ffn(cfg, params["ffn"],
+                    rms_norm(x, params["norm2"], cfg.norm_eps))
     return x
 
 
 def apply_layer(cfg: ModelConfig, spec: LayerSpec, params, x, positions,
                 use_kernels: bool = True) -> torch.Tensor:
-    _supported(spec)
     h = rms_norm(x, params["norm1"], cfg.norm_eps)
     if spec[0] == "attn":
         h = attention_block(cfg, params["mixer"], h, positions, use_kernels)
@@ -82,7 +79,6 @@ def apply_layer(cfg: ModelConfig, spec: LayerSpec, params, x, positions,
 # ------------------------------------------------------------------ decode --
 def init_layer_cache(cfg: ModelConfig, spec: LayerSpec, batch: int,
                      max_len: int, device=None) -> dict:
-    _supported(spec)
     if spec[0] == "attn":
         return init_attn_cache(cfg, batch, max_len, device)
     return init_mamba_cache(cfg, batch, device)
@@ -91,7 +87,6 @@ def init_layer_cache(cfg: ModelConfig, spec: LayerSpec, batch: int,
 def apply_layer_decode(cfg: ModelConfig, spec: LayerSpec, params, x, cache,
                        position, use_kernels: bool = True
                        ) -> Tuple[torch.Tensor, dict]:
-    _supported(spec)
     h = rms_norm(x, params["norm1"], cfg.norm_eps)
     if spec[0] == "attn":
         h, cache = decode_attention_block(cfg, params["mixer"], h, cache,

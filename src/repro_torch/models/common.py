@@ -3,7 +3,8 @@
 The PyTorch counterpart of ``repro.models.common``, with its casts kept:
 ``rms_norm`` normalises in fp32, casts back and then multiplies by the
 scale in the input's dtype; rotary embeddings rotate split halves in
-fp32 and cast back.
+fp32 and cast back.  :func:`recompute` is ``jax.checkpoint`` for the
+training paths.
 """
 from __future__ import annotations
 
@@ -12,6 +13,7 @@ import functools
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,
@@ -20,6 +22,14 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor,
     x = x.float()
     var = x.square().mean(dim=-1, keepdim=True)
     return (x * torch.rsqrt(var + eps)).to(dt) * scale
+
+
+def recompute(fn, *args):
+    """``fn(*args)``, its activations recomputed in the backward pass
+    (``jax.checkpoint``) when autograd is recording, else a plain call."""
+    if torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
 
 
 def act_fn(name: str):

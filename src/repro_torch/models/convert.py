@@ -6,7 +6,8 @@ pattern) after an unstacked ``prefix`` list.  The port keeps one flat list
 of layers in execution order (:func:`repro_torch.models.model.layer_specs`).
 The tree comes in as numpy arrays (``jax.tree.map(np.asarray, params)``);
 bfloat16 arrays (numpy's ``ml_dtypes`` bfloat16) become torch bfloat16
-bit for bit.
+bit for bit.  MoE leaves (the experts on the axis after the periods')
+come across as any other leaf.
 """
 from __future__ import annotations
 

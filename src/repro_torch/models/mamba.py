@@ -7,18 +7,21 @@ dtype; ``A = -exp(A_log)`` in fp32; the selective scan in fp32; ``y + D x``
 and ``y * silu(z)`` in fp32, cast back to x's dtype before out_proj.
 ``A_log`` and ``D`` are fp32 whatever ``param_dtype`` is.  The JAX block
 casts dt, B, C and x to fp32 before the scan; here the scan takes them in
-the compute dtype and widens each value as it reads it (exact, as the
-cast is), so a bf16 model hands it bf16 tensors and makes no fp32 copies;
-``D x`` is fp32 by type promotion.
+the compute dtype and widens them itself (exact, as the cast is): the
+kernel each value as it reads it, so a bf16 model hands it bf16 tensors
+and makes no fp32 copies; the chunked scan whole tensors.  ``D x`` is
+fp32 by type promotion.
 
-Two scan paths, as in the JAX package: the full-sequence block (prefill)
-runs the selective scan (``use_kernels`` True: the :func:`ssm_scan`
-wrapper, which launches the CUDA kernel on CUDA tensors; False: its plain
-version); decode is the O(1) recurrent state update.  Unlike the JAX
-decode step, which returns a new ``{"h", "conv"}``, this one copies the
-new state into the cache's tensors in place.  The JAX package's
-``selective_scan_chunked`` (its plain and dry-run scan) comes with the
-training slice.
+Two scan paths, as in the JAX package: the full-sequence block (prefill
+and training) runs the selective scan (``use_kernels`` True: the
+:func:`ssm_scan` wrapper, which launches the CUDA kernel on CUDA tensors
+and runs its plain version on CPU tensors; False: the JAX package's
+:func:`selective_scan_chunked`, an associative scan inside chunks of 128
+steps with each chunk recomputed in the backward pass, which training
+takes since the kernel has no backward); decode is the O(1) recurrent
+state update.  Unlike the JAX decode step, which returns a new
+``{"h", "conv"}``, this one copies the new state into the cache's
+tensors in place.
 """
 from __future__ import annotations
 
@@ -27,8 +30,8 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
-from ..kernels.ssm_scan import ssm_scan, ssm_scan_plain
-from .common import dense_init
+from ..kernels.ssm_scan import ssm_scan
+from .common import dense_init, recompute
 from .config import ModelConfig
 
 
@@ -72,6 +75,53 @@ def _causal_conv(cfg: ModelConfig, params, x: torch.Tensor) -> torch.Tensor:
     return sum(pad[:, i:i + S, :] * w[i] for i in range(k))
 
 
+def _scan_pairs(a: torch.Tensor, b: torch.Tensor):
+    """Inclusive scan over dim 1 of the pairs (a, b) under
+    (a1, b1) then (a2, b2) = (a1 a2, b1 a2 + b2): log2(n) shifted passes
+    (Hillis-Steele), each step combined with the one ``o`` before it."""
+    o = 1
+    while o < a.shape[1]:
+        a, b = (torch.cat([a[:, :o], a[:, :-o] * a[:, o:]], dim=1),
+                torch.cat([b[:, :o], b[:, :-o] * a[:, o:] + b[:, o:]],
+                          dim=1))
+        o *= 2
+    return a, b
+
+
+def _chunk_step(h, dti, xi, Bi, Ci, A):
+    """One chunk of steps from the carried state h (B, din, ds) ->
+    (h at its last step, y (B, c, din))."""
+    a = torch.exp(dti[..., None] * A)                   # (B, c, din, ds)
+    b = (dti * xi)[..., None] * Bi[:, :, None, :]       # (B, c, din, ds)
+    a_cum, b_cum = _scan_pairs(a, b)
+    hs = a_cum * h[:, None] + b_cum
+    y = torch.einsum("bcds,bcs->bcd", hs, Ci)
+    return hs[:, -1], y
+
+
+def selective_scan_chunked(dt, Bt, Ct, x, A, chunk: int = 128, h0=None
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """dt, x (B, S, din); Bt, Ct (B, S, ds); A (din, ds) -> (y (B, S, din),
+    h_final (B, din, ds)), fp32: the inputs are widened to fp32 (exact),
+    S is padded with zero steps to whole chunks (dt = 0 leaves h as it
+    is), and each chunk is recomputed in the backward pass, so only the
+    states at chunk boundaries are kept."""
+    dt, Bt, Ct, x = (t.float() for t in (dt, Bt, Ct, x))
+    Bsz, S, din = x.shape
+    pad = (-S) % chunk
+    if pad:
+        dt, x, Bt, Ct = (F.pad(t, (0, 0, 0, pad)) for t in (dt, x, Bt, Ct))
+    h = torch.zeros((Bsz, din, Bt.shape[-1]), dtype=torch.float32,
+                    device=x.device) if h0 is None else h0
+    ys = []
+    for c0 in range(0, S + pad, chunk):
+        sl = slice(c0, c0 + chunk)
+        h, y = recompute(_chunk_step, h, dt[:, sl], x[:, sl], Bt[:, sl],
+                         Ct[:, sl], A)
+        ys.append(y)
+    return torch.cat(ys, dim=1)[:, :S], h
+
+
 def mamba_block(cfg: ModelConfig, params, x: torch.Tensor,
                 use_kernels: bool = True) -> torch.Tensor:
     """Full-sequence (prefill) mamba sub-layer. x (B, S, d)."""
@@ -79,7 +129,7 @@ def mamba_block(cfg: ModelConfig, params, x: torch.Tensor,
     xi = F.silu(_causal_conv(cfg, params, xi))
     dt, Bt, Ct = _ssm_inputs(cfg, params, xi)
     A = -torch.exp(params["A_log"])
-    scan = ssm_scan if use_kernels else ssm_scan_plain
+    scan = ssm_scan if use_kernels else selective_scan_chunked
     y, _ = scan(dt, Bt, Ct, xi, A)
     y = y + params["D"] * xi                        # fp32 by promotion
     y = (y * F.silu(z.float())).to(x.dtype)

@@ -28,7 +28,7 @@ def resolve_device(device) -> torch.device:
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("CUDA is not available; pass device='cpu' to "
-                           "serve on the CPU")
+                           "run on the CPU")
     return device
 
 

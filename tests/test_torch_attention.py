@@ -8,7 +8,8 @@ tolerances are those of ``tests/test_kernels.py``: 2e-5 in fp32, 2e-2 in
 bf16 (the two frameworks round bf16 at other places), 2e-4 against the
 chunked path.  The inputs are made with numpy from a seed and handed to
 both.  The wrappers run the plain versions on CPU tensors, count no
-launch, and raise on any device that is neither CPU nor CUDA.
+launch, and raise on any device that is neither CPU nor CUDA.  Both
+kernels' shape checks take head_dim 192 (nemotron-4-340b).
 """
 import numpy as np
 import pytest
@@ -143,3 +144,44 @@ def test_wrappers_raise_on_other_devices():
     with pytest.raises(ValueError, match="no implementation"):
         decode_attention(q[:, 0], q, q,
                          torch.ones(1, dtype=torch.int32, device="meta"))
+
+
+@pytest.mark.parametrize("hd,ok", [(192, True), (128, True), (96, False),
+                                   (256, False)])
+def test_kernel_shape_checks_take_head_dim_192(hd, ok):
+    """Both attention kernels take nemotron-4-340b's head_dim 192 (and
+    refuse a head_dim they have no instantiation for) before any launch;
+    the plain versions, the kernels' oracles, agree with the JAX oracles
+    there."""
+    from repro_torch.kernels import decode_attention as kd
+    from repro_torch.kernels import flash_attention as kf
+    q = torch.zeros((1, 8, 12, hd))
+    kv = torch.zeros((1, 8, 4, hd))
+    checks = [lambda: kf._check(q, kv, kv),
+              lambda: kd._check(q[:, 0].contiguous(), kv, kv,
+                                torch.ones(1, dtype=torch.int32))]
+    for check in checks:
+        if ok:
+            check()
+        else:
+            with pytest.raises(ValueError, match="head_dim"):
+                check()
+
+
+def test_plain_versions_match_refs_at_head_dim_192():
+    rng = np.random.RandomState(7)
+    B, S, H, KV, hd = 2, 40, 12, 4, 192
+    q = rng.randn(B, S, H, hd).astype(np.float32)
+    k = rng.randn(B, S, KV, hd).astype(np.float32)
+    v = rng.randn(B, S, KV, hd).astype(np.float32)
+    ref = flash_attention_ref(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                              causal=True)
+    out = flash_attention_plain(*(torch.from_numpy(a) for a in (q, k, v)))
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), **_tol("float32"))
+    lengths = np.array([1, 33], np.int32)
+    ref = decode_attention_ref(jnp.asarray(q[:, 0]), jnp.asarray(k),
+                               jnp.asarray(v), jnp.asarray(lengths))
+    out = decode_attention_plain(torch.from_numpy(q[:, 0].copy()),
+                                 torch.from_numpy(k), torch.from_numpy(v),
+                                 torch.from_numpy(lengths))
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), **_tol("float32"))

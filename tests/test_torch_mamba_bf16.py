@@ -2,9 +2,10 @@
 
 In a bf16 model the port's mamba block hands the scan ``dt``, ``B``,
 ``C`` and ``x`` as bf16 tensors, where the JAX block (and the port before
-it) made fp32 copies of them first.  The scan widens each value as it
-reads it, which is exact, as the cast is; so the output must equal, bit
-for bit, the block that feeds fp32 copies.  The decode step, which takes
+it) made fp32 copies of them first.  The scan widens them itself, which
+is exact, as the cast is; so the output must equal, bit for bit, the
+block that feeds fp32 copies.  Both scan paths: the kernel wrapper
+(``use_kernels`` True) and the chunked scan (False).  The decode step, which takes
 the same inputs from ``_ssm_inputs``, must be unchanged bit for bit too.
 Reduced falcon-mamba, random weights from a seed.
 """
@@ -48,7 +49,7 @@ def test_bf16_block_hands_the_scan_bf16_and_matches_fp32_copies(
     cfg, p = _bf16_layer()
     x = torch.from_numpy(np.random.RandomState(4).randn(
         B, S, cfg.d_model).astype(np.float32)).to(torch.bfloat16)
-    name = "ssm_scan" if use_kernels else "ssm_scan_plain"
+    name = "ssm_scan" if use_kernels else "selective_scan_chunked"
     scan = getattr(tm, name)
     seen = []
 

@@ -8,9 +8,11 @@
   silently;
 * the fleet defaults to the CUDA kernel on the CUDA device, and asking for
   it where CUDA is missing raises instead of falling back; so do the
-  serving engine and its command line;
+  serving engine and its command line, and the training command line;
 * the kernel wrapper runs its plain version on CPU tensors and counts no
-  launch.
+  launch;
+* the attention and scan kernels, which have no backward, refuse a launch
+  whose output autograd would need.
 """
 import ast
 from pathlib import Path
@@ -35,25 +37,32 @@ COPIED = ["core/" + m + ".py" for m in (
     "linked", "opt_unlinked", "opt_linked", "harness", "burst")] + [
     "fleet/lowering.py", "fleet/state.py", "fleet/stepper.py",
     "models/config.py", "persist/__init__.py", "persist/wal.py",
-    "persist/cursors.py", "serving/request_queue.py"] + sorted(
+    "persist/cursors.py", "serving/request_queue.py", "data/__init__.py",
+    "data/pipeline.py", "checkpoint/__init__.py",
+    "checkpoint/checkpointer.py"] + sorted(
     "configs/" + p.name for p in (REPO / "src" / "repro" / "configs").glob(
         "*.py"))
 CONFIG_IMPORT = ("from repro.models.config import ModelConfig\n",
                  "from ..models.config import ModelConfig\n")
-# the one line of each copy that changes: its import of repro made relative
+# the lines of each copy that change: its imports of repro made relative
 CHANGED_IMPORT = {
-    "core/burst.py": (
+    "core/burst.py": [(
         "    from repro.fleet.lowering import (FleetLoweringError, "
         "encode_program,\n",
         "    from ..fleet.lowering import (FleetLoweringError, "
-        "encode_program,\n"),
-    "configs/__init__.py": (
+        "encode_program,\n")],
+    "configs/__init__.py": [(
         "from repro.models.config import ModelConfig, SHAPES, "
         "ShapeConfig\n",
-        "from ..models.config import ModelConfig, SHAPES, ShapeConfig\n"),
-    "serving/request_queue.py": (
+        "from ..models.config import ModelConfig, SHAPES, ShapeConfig\n")],
+    "serving/request_queue.py": [(
         "from repro.persist.wal import WriteAheadLog\n",
-        "from ..persist.wal import WriteAheadLog\n"),
+        "from ..persist.wal import WriteAheadLog\n")],
+    "data/pipeline.py": [
+        ("from repro.persist.cursors import CursorFile\n",
+         "from ..persist.cursors import CursorFile\n"),
+        ("from repro.persist.wal import WriteAheadLog\n",
+         "from ..persist.wal import WriteAheadLog\n")],
 }
 
 
@@ -87,12 +96,12 @@ def test_copied_module_equals_original(rel):
     ref = (REPO / "src" / "repro" / rel).read_text().splitlines(
         keepends=True)
     if rel in CHANGED_IMPORT:
-        old, new = CHANGED_IMPORT[rel]
+        changes = CHANGED_IMPORT[rel]
     elif rel.startswith("configs/"):
-        old, new = CONFIG_IMPORT
+        changes = [CONFIG_IMPORT]
     else:
-        old = new = None
-    if old is not None:
+        changes = []
+    for old, new in changes:
         assert ref.count(old) == 1
         ref = [new if line == old else line for line in ref]
     assert mine == ref, f"{rel} drifted from src/repro/{rel}"
@@ -160,3 +169,62 @@ def test_serving_defaults_to_cuda_and_raises_without_it(tmp_path,
     with pytest.raises(RuntimeError, match="CUDA"):
         serve.main(["--dir", str(tmp_path / "serve")])
     assert not (tmp_path / "serve").exists()
+
+
+def test_training_defaults_to_cuda_and_raises_without_it(tmp_path,
+                                                        monkeypatch):
+    import inspect
+
+    from repro_torch.configs import reduced_config
+    from repro_torch.launch import train
+    assert inspect.signature(train.train).parameters["device"].default \
+        == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.train(reduced_config("yi-6b"), steps=1,
+                    ckpt_dir=str(tmp_path / "fn"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.main(["--steps", "1", "--ckpt-dir", str(tmp_path / "cli")])
+    assert not (tmp_path / "fn").exists() and not (tmp_path / "cli").exists()
+
+
+@pytest.mark.parametrize("name", ["flash_attention", "decode_attention",
+                                  "ssm_scan"])
+def test_kernels_refuse_inputs_that_require_grad(name):
+    """The launch path of each wrapper (``_launch``, which CUDA tensors
+    take) raises before anything reaches the card when an input requires
+    grad and grad is enabled, naming the path training takes instead.
+    Here the tensors lie on the CPU: the guard runs first, so the launch
+    is never reached."""
+    import importlib
+    mod = importlib.import_module(f"repro_torch.kernels.{name}")
+    x = torch.zeros((1, 4, 16), requires_grad=True)
+    args = {
+        "flash_attention": lambda: (torch.zeros((1, 4, 2, 16),
+                                                requires_grad=True),
+                                    torch.zeros((1, 4, 2, 16)),
+                                    torch.zeros((1, 4, 2, 16)), True),
+        "decode_attention": lambda: (torch.zeros((1, 2, 16),
+                                                 requires_grad=True),
+                                     torch.zeros((1, 4, 2, 16)),
+                                     torch.zeros((1, 4, 2, 16)),
+                                     torch.ones(1, dtype=torch.int32)),
+        "ssm_scan": lambda: (x, torch.zeros((1, 4, 2)),
+                             torch.zeros((1, 4, 2)), torch.zeros((1, 4, 16)),
+                             torch.zeros((16, 2))),
+    }[name]()
+    instead = {"flash_attention": "causal_attention_chunked",
+               "decode_attention": "use_kernels=False",
+               "ssm_scan": "selective_scan_chunked"}[name]
+    with pytest.raises(RuntimeError, match=instead):
+        mod._launch(*args)
+
+
+def test_grad_guard_passes_without_grad():
+    from repro_torch.kernels.build import refuse_grad
+    x = torch.zeros(3, requires_grad=True)
+    with torch.no_grad():
+        refuse_grad("k", (x,), "the plain path")
+    refuse_grad("k", (torch.zeros(3),), "the plain path")
+    with pytest.raises(RuntimeError, match="the plain path"):
+        refuse_grad("k", (torch.zeros(3), x), "the plain path")

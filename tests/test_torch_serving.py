@@ -2,10 +2,13 @@
 ``test_serving_durable_roundtrip`` and ``test_serving_crash_replays_pending``
 (tests/test_pipeline_serving.py), and token-for-token equality with the
 JAX package's ``ServeEngine`` for the same requests and parameters
-(reduced yi-6b and reduced falcon-mamba, fp32): prompts of unequal
+(reduced yi-6b, falcon-mamba and deepseek-moe, fp32; the MoE one with a
+capacity that binds, so that both drop the same pairs): prompts of unequal
 length (padded with token 0), teacher-forced prompt, greedy argmax, one
 fence per batch.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -98,6 +101,34 @@ def test_mamba_tokens_equal_the_jax_engine(tmp_path):
     assert q.responses() == ref_q.responses()
     assert len(q.responses()) == 5
     assert eng.steps == 2 * (4 + 6 - 1) + (5 + 6 - 1)
+    ref_q.close()
+    q.close()
+
+
+def test_moe_tokens_equal_the_jax_engine(tmp_path):
+    """Reduced deepseek-moe (its dense first layer, then MoE layers) with
+    capacity factor 1.0: a decode step's batch of 3 tokens is one chunk
+    with a capacity of one row an expert, so pairs are dropped, and the
+    tokens equal only if both engines drop the same ones."""
+    cfg = dataclasses.replace(ref_reduced_config("deepseek-moe"),
+                              capacity_factor=1.0)
+    jp = ref_init_params(cfg, jax.random.PRNGKey(2))
+    rng = np.random.RandomState(3)
+    reqs = [{"id": f"e{i}", "prompt": rng.randint(
+        0, cfg.vocab, (2 + i % 3,)).tolist()} for i in range(6)]
+    ref_q = RefQueue(str(tmp_path / "jax"))
+    ref_q.submit(reqs)
+    RefEngine(cfg, ref_q, params=jp, max_len=32).run(batch_size=3,
+                                                     max_new=6)
+    q = DurableRequestQueue(str(tmp_path / "torch"))
+    q.submit(reqs)
+    mine = dataclasses.replace(reduced_config("deepseek-moe"),
+                               capacity_factor=1.0)
+    params = params_from_jax(mine, jax.tree.map(np.asarray, jp))
+    ServeEngine(mine, q, params=params, max_len=32, device="cpu").run(
+        batch_size=3, max_new=6)
+    assert q.responses() == ref_q.responses()
+    assert len(q.responses()) == 6
     ref_q.close()
     q.close()
 
